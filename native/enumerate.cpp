@@ -1,7 +1,7 @@
 // Native state-space enumerator for prosper-tpu.
 //
 // The reference library is pure Python (SURVEY.md §2a: no native
-// components), so this is the one place the TPU build adds native code on
+// components), so this is the one place this build adds native code on
 // the host side: enumerating the truncated latent-state space
 // {states over Hp slots, min_active..gamma active, K non-zero values}
 // explodes combinatorially for DSC/TSC configs (sum_k C(Hp,k) K^k can reach

@@ -1,6 +1,6 @@
-"""prosper-tpu: a TPU-native framework for Expectation-Truncation variational EM.
+"""prosper-tpu: a framework for Expectation-Truncation variational EM in JAX.
 
-A ground-up JAX / pjit / shard_map / Pallas re-design of the capabilities of
+A ground-up JAX / jit / shard_map re-design of the capabilities of
 the reference library ``ml-uol/prosper`` (ProSper): sparse-coding latent
 variable models (BSC, ternary SC, discrete SC, spike-and-slab/Gaussian SC,
 maximal-causes MCA/MMCA, and mixture models) trained with variational EM where
@@ -12,7 +12,10 @@ the posterior is approximated by Expectation Truncation (ET):
   logsumexp posteriors,
 * sufficient-statistic accumulation and closed-form M-steps,
 * data parallelism over a ``jax.sharding.Mesh`` with ``psum`` of sufficient
-  statistics (the TPU-native analogue of the reference's mpi4py allreduce).
+  statistics (the analogue of the reference's mpi4py allreduce).
+
+It runs on NVIDIA GPUs and on the CPU.  The code was first written for a
+TPU; the package name is historical.
 
 Reference parity pointers (reference mount unavailable this round — see
 SURVEY.md provenance warning; citations are to SURVEY.md section/row):
@@ -24,7 +27,7 @@ SURVEY.md provenance warning; citations are to SURVEY.md section/row):
   - DataLog/AutoTable    -> SURVEY.md §2 datalog/autotable rows
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 from prosper_tpu.engine.anneal import LinearAnnealing
 from prosper_tpu.engine.em import EM, run_restarts

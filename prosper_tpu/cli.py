@@ -14,6 +14,10 @@ program" escape hatch (.py configs) and adds declarative TOML/JSON configs:
 Multi-device: ``--mesh data=N`` shards the datapoint axis over the first N
 local devices (the mpirun -n analogue; multi-host uses
 jax.distributed.initialize via --multihost).
+
+``result.h5`` and ``checkpoint.h5`` need the optional h5py.  Without it,
+``train`` still writes ``metrics.jsonl`` and saves the final parameters to
+``params.npz`` (which ``diagnose`` reads).
 """
 
 from __future__ import annotations
@@ -109,10 +113,10 @@ def _truncate_logs(out_dir: str, step: int, log_params_every: int) -> None:
     """
     h5_path = os.path.join(out_dir, "result.h5")
     if os.path.exists(h5_path):
-        import h5py
+        from prosper_tpu.io import import_h5py
         k = max(1, int(log_params_every))
         n_big = (step + k - 1) // k       # positions 0, k, 2k, ... < step
-        with h5py.File(h5_path, "a") as f:
+        with import_h5py().File(h5_path, "a") as f:
             for name in list(f.keys()):
                 ds = f[name]
                 target = n_big if (ds.ndim - 1) >= 2 else step
@@ -132,7 +136,7 @@ def cmd_train(args) -> int:
                                        or getattr(args, "multihost", False)):
         # validate BEFORE any file handles open: the dlog handlers truncate
         # result.h5/metrics.jsonl in "w" mode, so a late rejection would
-        # wipe a previous run's logs (round-4 regression test)
+        # wipe a previous run's logs
         raise SystemExit("--stream is single-device in v1; drop "
                          "--mesh/--multihost")
     if getattr(args, "multihost", False):
@@ -141,16 +145,16 @@ def cmd_train(args) -> int:
         init_multihost()
 
     from prosper_tpu.engine.em import EM
+    from prosper_tpu.io import h5py_available
     from prosper_tpu.io.datalog import DataLog, StoreToH5, StoreToJSONL
     from prosper_tpu.parallel.mesh import MeshRuntime, pprint
 
+    have_h5 = h5py_available()
+    if args.resume and not have_h5:
+        raise SystemExit("--resume reads checkpoint.h5, which needs h5py "
+                         "(pip install 'prosper-tpu[h5]')")
     cfg = load_config(args.config)
     model = cfg["model"]
-    if getattr(args, "backend", None):
-        if not hasattr(model, "backend"):
-            raise SystemExit(f"model {type(model).__name__} has no backend "
-                             "selection")
-        model.backend = args.backend
     anneal = cfg["anneal"]
     data = _load_data(cfg, model, args)
 
@@ -165,7 +169,7 @@ def cmd_train(args) -> int:
     params = None
     ckpt_rng = None
     log_params_every = int(cfg.get("log_params_every", 1))
-    ckpt_path = os.path.join(out_dir, "checkpoint.h5")
+    ckpt_path = os.path.join(out_dir, "checkpoint.h5") if have_h5 else None
     ckpt_extra = {}
     if args.resume and os.path.exists(ckpt_path):
         from prosper_tpu.io import checkpoint
@@ -174,9 +178,9 @@ def cmd_train(args) -> int:
         anneal.reset(step)
         # drop log rows for iterations between the checkpoint and the crash:
         # append mode would otherwise duplicate them, breaking
-        # resume_from_h5's row-index == iteration assumption (ADVICE r1).
+        # resume_from_h5's row-index == iteration assumption.
         # Rank-0 only — the log files are rank-0-owned, and concurrent
-        # truncation from every process would corrupt them (review r2)
+        # truncation from every process would corrupt them
         import jax
         if jax.process_index() == 0:
             _truncate_logs(out_dir, step, log_params_every)
@@ -184,7 +188,13 @@ def cmd_train(args) -> int:
 
     dlog = DataLog()
     mode = "a" if (args.resume and params is not None) else "w"
-    dlog.set_handler(None, StoreToH5, os.path.join(out_dir, "result.h5"), mode)
+    if have_h5:
+        dlog.set_handler(None, StoreToH5, os.path.join(out_dir, "result.h5"),
+                         mode)
+    else:
+        print("[train] h5py is not installed: result.h5 and checkpoint.h5 "
+              "are not written; final params go to params.npz",
+              file=sys.stderr)
     dlog.set_handler(None, StoreToJSONL,
                      os.path.join(out_dir, "metrics.jsonl"), mode)
 
@@ -197,8 +207,8 @@ def cmd_train(args) -> int:
         runtime = MeshRuntime()
 
     if getattr(args, "stream", 0):
-        # host->device streaming driver for datasets beyond HBM (round 4,
-        # engine/stream.py).  v1 limit, enforced loudly: single process /
+        # host->device streaming driver for datasets beyond device memory
+        # (engine/stream.py).  v1 limit, enforced loudly: single process /
         # single device.
         if runtime is not None:
             raise SystemExit("--stream is single-device in v1; drop "
@@ -218,8 +228,7 @@ def cmd_train(args) -> int:
             # that drives the Ncut ranking
             sem.resume(ckpt_path)
         params = sem.run(verbose=not args.quiet)
-        from prosper_tpu.io import checkpoint
-        checkpoint.save(ckpt_path, params, step=anneal.position)
+        _save_final(out_dir, ckpt_path, params, anneal.position)
         dlog.close()
         pprint(f"[train] done (streamed, {sem.n_seg} segments) -> {out_dir}")
         return 0
@@ -239,7 +248,7 @@ def cmd_train(args) -> int:
         padded["valid"][:v.shape[0]] = v
     # compare against the PADDED length — the checkpoint stores F_prev at
     # the padded training shape, which exceeds the raw dataset length
-    # whenever static-shape padding occurred (review r2)
+    # whenever static-shape padding occurred
     if "F_prev" in ckpt_extra:
         if ckpt_extra["F_prev"].shape[0] <= padded["y"].shape[0]:
             fp = np.zeros((padded["y"].shape[0],), np.float32)
@@ -267,7 +276,7 @@ def cmd_train(args) -> int:
     if ckpt_rng is not None:
         # deterministic restart: continue the PRNG chain recorded in the
         # checkpoint rather than replaying the config seed's early-schedule
-        # noise values (ADVICE r1)
+        # noise values
         em.rng = ckpt_rng
     if "revive_rng" in ckpt_extra:
         # ... and the revival PCG64 chain, so revivals replay identically
@@ -275,24 +284,34 @@ def cmd_train(args) -> int:
     if "revive_last" in ckpt_extra:
         # ... and the revival cadence (last-fired iteration), so revival
         # TIMING also matches the uninterrupted run when the checkpoint
-        # step is not aligned with the revival period (review r2)
+        # step is not aligned with the revival period
         em._last_revive = int(ckpt_extra["revive_last"])
     if args.scan:
         params = em.run_scanned()
     else:
         params = em.run(verbose=not args.quiet)
 
-    from prosper_tpu.io import checkpoint
-    checkpoint.save(ckpt_path, params, step=anneal.position)
+    _save_final(out_dir, ckpt_path, params, anneal.position)
     dlog.close()
     pprint(f"[train] done -> {out_dir}")
     return 0
 
 
+def _save_final(out_dir: str, ckpt_path, params, step: int) -> None:
+    """Final parameters: checkpoint.h5, or params.npz without h5py."""
+    if ckpt_path is not None:
+        from prosper_tpu.io import checkpoint
+        checkpoint.save(ckpt_path, params, step=step)
+        return
+    import jax
+    if jax.process_index() == 0:
+        np.savez(os.path.join(out_dir, "params.npz"),
+                 **{k: np.asarray(v) for k, v in jax.device_get(params).items()})
+
+
 def cmd_infer(args) -> int:
-    from prosper_tpu.io import checkpoint
+    from prosper_tpu.io import checkpoint, import_h5py
     from prosper_tpu.data.patches import load_h5_shard
-    import h5py
 
     cfg = load_config(args.config)
     model = cfg["model"]
@@ -304,7 +323,7 @@ def cmd_infer(args) -> int:
     y = load_h5_shard(args.data, cfg.get("data_dataset", "patches"))
     out = model.inference(params, {"y": y}, top_L=args.top)
     dest = args.output or "inference.h5"
-    with h5py.File(dest, "w") as f:
+    with import_h5py().File(dest, "w") as f:
         for k, v in out.items():
             f.create_dataset(k, data=np.asarray(v))
     print(f"[infer] {y.shape[0]} datapoints -> {dest} (params from step {step})")
@@ -411,9 +430,7 @@ def main(argv=None) -> int:
     pt.add_argument("--stream", type=int, default=0, metavar="SEG",
                     help="stream the host-resident dataset through the "
                          "device in SEG-datapoint segments (for datasets "
-                         "beyond HBM; engine/stream.py)")
-    pt.add_argument("--backend", choices=("xla", "pallas"), default=None,
-                    help="E-step backend (linear + max families)")
+                         "beyond device memory; engine/stream.py)")
     pt.add_argument("--multihost", action="store_true",
                     help="initialise jax.distributed (run one process per "
                          "host) and mesh over all global devices")
@@ -450,6 +467,8 @@ def main(argv=None) -> int:
     pd.set_defaults(fn=cmd_diagnose)
 
     args = p.parse_args(argv)
+    from prosper_tpu.utils import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

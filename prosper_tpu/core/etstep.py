@@ -5,14 +5,14 @@ Covers BSC (binary), TSC (ternary) and DSC (discrete) — every model with
 SURVEY.md §2 rows "BSC-ET"/"TSC-ET"/"DSC-ET" and §3.1's hot loop
 (prosper/em/camodels/{bsc_et,tsc_et,dsc_et}.py — mount unavailable).
 
-TPU-first formulation (NOT the reference's layout)
---------------------------------------------------
+Formulation (NOT the reference's layout)
+----------------------------------------
 The reference gathers a per-datapoint dictionary ``W[:, candidates_n]`` and
-computes ``(N, S, D)`` reconstructions.  On TPU we avoid both:
+computes ``(N, S, D)`` reconstructions.  Here both are avoided:
 
   ||y - W s||^2 = ||y||^2 - 2 s.(Wc^T y) + s.(Wc^T Wc).s
 
-  * ``P = y @ W``            one large (N,D)x(D,H) MXU GEMM, also reused for
+  * ``P = y @ W``            one large (N,D)x(D,H) GEMM, also reused for
                              candidate selection,
   * ``proj = P[n, cand]``    gather of N*Hp scalars,
   * ``G = (W^T W)[cand,cand]`` gather of N*Hp^2 scalars from a once-per-step
@@ -29,7 +29,7 @@ H' candidates}`` with the zero/singleton parts handled in closed form
 (SURVEY.md §2 "ET base": "zero and singleton states handled analytically").
 
 Chunking: datapoints are processed in static-size chunks via ``lax.scan``
-with online accumulation, bounding HBM residency at
+with online accumulation, bounding device-memory residency at
 O(chunk * (S + H + H*K)) regardless of shard size.
 """
 
@@ -111,12 +111,9 @@ def slice_state_shard(state_axis, n_state_shards: int, arrays):
 def per_slot_candidates(P, w_norm, Hp: int, signed_select: bool, gram):
     """Candidate selection + Gram machinery in the per-slot formulation.
 
-    Round 4, HLO-trace-driven (tools/profile_gsc_step.py): the stacked
-    (C,Hp,H) one-hot and the batched (C,Hp,H)/(C,Hp,Hp) T/G einsums lower
-    to batch-in-sublanes emitters bracketed by layout copies (~34% of the
-    GSC step's device time).  Unrolling the tiny Hp axis keeps every op a
-    large (C,H) GEMM or a fused lane reduction in the same layout class as
-    ``P = y @ W`` — no copies, MXU-shaped work only.
+    The tiny Hp axis is unrolled, so every op is a large (C,H) GEMM or a
+    fused row reduction in the same layout as ``P = y @ W``; no stacked
+    (C,Hp,H) one-hot or batched (C,Hp,H)/(C,Hp,Hp) einsum is formed.
 
     Returns (cand (C,Hp) int32, hots [Hp x (C,H) f32], proj (C,Hp),
     Gf (C,Hp^2) with Gf[:, a*Hp+b] = w_cand_a . w_cand_b).
@@ -142,8 +139,7 @@ def per_slot_candidates(P, w_norm, Hp: int, signed_select: bool, gram):
 
 def slot_scatter_vec(base, vals, hots):
     """base (C,H) + sum_a hots[a] * vals[:,a] — the candidate-frame ->
-    full-H scatter as Hp fused (C,H) broadcast mult-adds (layout-copy-free
-    replacement of the einsum against the stacked one-hot)."""
+    full-H scatter as Hp fused (C,H) broadcast mult-adds."""
     out = base
     for a, hot in enumerate(hots):
         out = out + hot * vals[:, a][:, None]
@@ -185,7 +181,7 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds, sa: LinearStateArr
     S multi-states are split into ``n_state_shards`` contiguous slices; each
     device evaluates only its slice and the softmax is combined across the
     axis with the online-logsumexp algebra (pmax of the running max, psum of
-    the rescaled mass) — exactly ring-attention's correction, over ICI.  The
+    the rescaled mass) — exactly ring-attention's correction.  The
     zero/singleton parts and the per-datapoint scalars are owned by
     state-rank 0 so nothing is double counted; the caller psums the suff
     stats over BOTH mesh axes.
@@ -198,11 +194,8 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds, sa: LinearStateArr
 
     inv2s2 = 0.5 / sigma2
     if compute_dtype is not None:
-        # explicit low-precision inputs / f32 accumulation on the two large
-        # MXU GEMMs.  NOTE: measured on v5e, this is a no-op relative to the
-        # default — TPU 'default' matmul precision already multiplies in
-        # bf16 with f32 accumulation (outputs were bit-identical) — but the
-        # knob documents intent and matters on other backends/precisions.
+        # explicit low-precision operands / f32 accumulation on the two
+        # large GEMMs
         P = jnp.dot(y.astype(compute_dtype), W.astype(compute_dtype),
                     preferred_element_type=f32)                        # (C, H)
     else:
@@ -210,10 +203,9 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds, sa: LinearStateArr
     w_norm = jnp.sqrt(jnp.maximum(gram_diag, 1e-30))
 
     if dense_gather:
-        # TPU fast path: index gathers/scatters lower to pathologically slow
-        # HLO on TPU (profiled ~50x the GEMM cost), so candidate selection
-        # produces per-slot one-hot masks and every gather becomes an MXU
-        # matmul / fused lane reduction (see per_slot_candidates).
+        # candidate selection produces per-slot one-hot masks and every
+        # gather becomes a matmul / fused row reduction (see
+        # per_slot_candidates)
         cand, hots, proj, Gf = per_slot_candidates(P, w_norm, Hp,
                                                    signed_select, gram)
     else:
@@ -278,7 +270,7 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds, sa: LinearStateArr
     # temperature-comparable free energy used for logging / monotonicity.
     # Statically skipped when the caller knows the schedule is saturated
     # (beta == prior_beta == 1): F_true == F exactly, and this second
-    # full-width softmax is the dominant VPU cost of the steady state
+    # full-width softmax is a large elementwise cost of the steady state
     if collect_true:
         logits_true = jnp.concatenate(
             [zero_logit,
@@ -315,8 +307,8 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds, sa: LinearStateArr
         s_full = slot_scatter_vec(s_single, s_cand, hots)                # (C, H)
         sum_ss = slot_scatter_mat(ss_cand * wv[:, None], hots, H)        # (H, H)
     else:
-        # flat 1-D scatters (far better than broadcasting-index scatters,
-        # which showed pathological compile times on some backends)
+        # flat 1-D scatters (broadcasting-index scatters showed
+        # pathological compile times)
         row_base = jnp.arange(C, dtype=jnp.int32)[:, None] * H
         s_flat_idx = (row_base + cand).reshape(-1)
         s_full = (s_single.reshape(-1).at[s_flat_idx].add(s_cand.reshape(-1))
@@ -368,11 +360,10 @@ def _chunk_estats(y, w, W, gram, gram_diag, sigma2, log_odds, sa: LinearStateArr
         Qsel = jnp.dot(q_multi, so.reshape(S_loc, Hp * K),
                        preferred_element_type=f32).reshape(C, Hp, K)
         phi_c_multi = jnp.einsum("nak,na,n->k", Qsel, proj, wv)
-        # per-slot form of the QG contraction (advisor round 4): the C-axis
-        # reduction runs on the FLAT Gf — one (S,C)x(C,Hp^2) GEMM, no
-        # re-materialised (C,Hp,Hp) batch (the batch-in-sublanes layout the
-        # per-slot formulation eliminates elsewhere); the remaining
-        # state-space contraction is tiny (S_loc * Hp^2 * K^2)
+        # per-slot form of the QG contraction: the C-axis reduction runs on
+        # the FLAT Gf — one (S,C)x(C,Hp^2) GEMM, no re-materialised
+        # (C,Hp,Hp) batch; the remaining state-space contraction is tiny
+        # (S_loc * Hp^2 * K^2)
         qw = q_multi * wv[:, None]                           # (C, S_loc)
         QGf = jax.lax.dot_general(qw, Gf, (((0,), (0,)), ((), ())),
                                   preferred_element_type=f32)  # (S_loc, Hp^2)
@@ -390,20 +381,15 @@ def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
                        sa: LinearStateArrays, Hp: int, signed_select: bool,
                        beta, prior_beta, s_block: int, compute_dtype=None,
                        state_axis=None, n_state_shards: int = 1,
-                       pallas_bigs: bool = False,
-                       pallas_interpret: bool = False,
-                       pallas_precise: bool = False,
                        collect_true: bool = True):
     """Big-S E-statistics for one chunk: S-blocked online logsumexp.
 
     The standard path materialises (C, S) logits; at S ~ 10^4+ the step
-    becomes HBM-bound on that traffic (measured: tsc_bigs throughput RISES
-    as the chunk shrinks — 2.06 M dp/s at chunk=512 vs 0.75 M at 4096).
-    Here the enumerated states are processed in ``s_block``-sized tiles via
+    becomes bound by the memory traffic of that tensor.  Here the enumerated states are processed in ``s_block``-sized tiles via
     ``lax.scan`` with flash-attention-style running (max, mass, moment)
     accumulators — the same online-logsumexp algebra the state-sharded path
     applies across devices (SURVEY.md §5.7), applied sequentially within one
-    device.  Nothing of size (C, S) ever reaches HBM.
+    device.  Nothing of size (C, S) is ever materialised.
 
     Composes with state sharding (SURVEY §5.7's real DSC S=1e5+ regime —
     shard the state axis ACROSS devices, tile the per-device slice in
@@ -466,9 +452,9 @@ def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
     vcounts_p = jnp.pad(sa.value_counts, ((0, pad), (0, 0)))
     absst_p = jnp.pad(sa.abs_states, ((0, pad),))
     prior = vcounts_p @ log_odds
-    # ADVICE r2 (medium): mask padded states with an explicit validity
-    # vector — encoding the mask as prior=neg silently broke at
-    # prior_beta=0 (a legal public-API argument), corrupting F/q/stats
+    # mask padded states with an explicit validity vector — encoding the
+    # mask as prior=neg silently breaks at prior_beta=0 (a legal public-API
+    # argument), corrupting F/q/stats
     valid = (jnp.arange(S_loc * n_state_shards) < S).astype(f32)
     if sharded:
         srank = jax.lax.axis_index(state_axis)
@@ -478,79 +464,60 @@ def _chunk_estats_bigs(y, w, W, gram, gram_diag, sigma2, log_odds,
             sl(states_p), sl(outer_p), sl(vcounts_p), sl(absst_p),
             sl(prior), sl(valid))
 
-    if pallas_bigs:
-        # fused flash-style kernel (ops/bigs_pallas.py): the (s_block, Ct)
-        # logits tile and the running (max, mass, moment) accumulators stay
-        # in VMEM — the XLA scan below round-trips ~5 (C, s_block) tensors
-        # per block through HBM, which is the measured 3.66 M dp/s roofline.
-        # Composes with state sharding: each device runs the kernel over its
-        # local padded slice; the partial (max, mass, moments) combine across
-        # the axis below exactly as for the scan.
-        from prosper_tpu.ops.bigs_pallas import bigs_multi_pallas
-        (m_b, l_b, m_bt, l_bt, a_abs, a_s, a_ss, a_vc) = bigs_multi_pallas(
-            proj, Gf, states_p, outer_p, vcounts_p, prior, valid, absst_p,
-            inv2s2, beta, prior_beta, s_block, interpret=pallas_interpret,
-            collect_true=collect_true, precise=pallas_precise)
-    else:
-        # Merged-GEMM scan body (round 5, VERDICT r4 #4 — the measured
-        # 0.73 -> 0.47 ms/chunk overlap gap).  Each block is now exactly
-        # TWO MXU GEMMs:
-        #   * logits = Xa @ A_b.T — the prior and the padding mask ride
-        #     along as two extra CONTRACTION columns (A = [st|ot|pr|mask],
-        #     Xa = [2*beta*inv2s2*proj | -beta*inv2s2*Gf | prior_beta | 1]),
-        #     eliminating the per-block prior-FMA and mask-where passes;
-        #   * acc += p @ B_b — ONE (C,s_block)x(s_block, Hp+Hp^2+K+2) GEMM
-        #     produces every accumulator moment (s | ss | vc | abs | mass)
-        #     where the old body paid FOUR separate GEMMs whose M <= 100
-        #     outputs each cost a full 128-lane MXU pass (~4x the effective
-        #     MXU work of the merged form).
-        # The running accumulator is ONE (C, nB) tensor rescaled by r once.
-        maskcol = jnp.where(valid > 0, 0.0, neg)[:, None]
-        Acols = jnp.concatenate([states_p, outer_p, prior[:, None],
-                                 maskcol], axis=1)       # (S_loc, nA)
-        Bcols = jnp.concatenate([states_p, outer_p, vcounts_p,
-                                 absst_p[:, None],
-                                 jnp.ones((S_loc, 1), f32)],
-                                axis=1)                  # (S_loc, nB)
-        nA = Hp + Hp * Hp + 2
-        nB = Hp + Hp * Hp + K + 2
-        X = jnp.concatenate([(2.0 * inv2s2) * proj, (-inv2s2) * Gf],
-                            axis=1)                      # (C, Hp+Hp^2)
-        Xa = jnp.concatenate([beta * X,
-                              jnp.full((C, 1), prior_beta, f32),
-                              jnp.ones((C, 1), f32)], axis=1)
+    # Merged-GEMM scan body.  Each block is exactly TWO GEMMs:
+    #   * logits = Xa @ A_b.T — the prior and the padding mask ride
+    #     along as two extra CONTRACTION columns (A = [st|ot|pr|mask],
+    #     Xa = [2*beta*inv2s2*proj | -beta*inv2s2*Gf | prior_beta | 1]),
+    #     eliminating the per-block prior-FMA and mask-where passes;
+    #   * acc += p @ B_b — ONE (C,s_block)x(s_block, Hp+Hp^2+K+2) GEMM
+    #     produces every accumulator moment (s | ss | vc | abs | mass).
+    # The running accumulator is ONE (C, nB) tensor rescaled by r once.
+    maskcol = jnp.where(valid > 0, 0.0, neg)[:, None]
+    Acols = jnp.concatenate([states_p, outer_p, prior[:, None],
+                             maskcol], axis=1)       # (S_loc, nA)
+    Bcols = jnp.concatenate([states_p, outer_p, vcounts_p,
+                             absst_p[:, None],
+                             jnp.ones((S_loc, 1), f32)],
+                            axis=1)                  # (S_loc, nB)
+    nA = Hp + Hp * Hp + 2
+    nB = Hp + Hp * Hp + K + 2
+    X = jnp.concatenate([(2.0 * inv2s2) * proj, (-inv2s2) * Gf],
+                        axis=1)                      # (C, Hp+Hp^2)
+    Xa = jnp.concatenate([beta * X,
+                          jnp.full((C, 1), prior_beta, f32),
+                          jnp.ones((C, 1), f32)], axis=1)
+    if collect_true:
+        # un-annealed channel shares A_b: Xt = [X | 1 | 1]
+        Xt = jnp.concatenate([X, jnp.ones((C, 2), f32)], axis=1)
+    xs = (Acols.reshape(nblocks, s_block, nA),
+          Bcols.reshape(nblocks, s_block, nB))
+
+    def body(carry, xb):
+        m, m_t, l_t, acc = carry
+        A_b, B_b = xb
+        logits = jnp.dot(Xa, A_b.T, preferred_element_type=f32)
+        m_new = jnp.maximum(m, jnp.max(logits, axis=1))
+        r = jnp.exp(m - m_new)
+        p = jnp.exp(logits - m_new[:, None])
+        acc = acc * r[:, None] + jnp.dot(p, B_b,
+                                         preferred_element_type=f32)
         if collect_true:
-            # un-annealed channel shares A_b: Xt = [X | 1 | 1]
-            Xt = jnp.concatenate([X, jnp.ones((C, 2), f32)], axis=1)
-        xs = (Acols.reshape(nblocks, s_block, nA),
-              Bcols.reshape(nblocks, s_block, nB))
+            logits_t = jnp.dot(Xt, A_b.T, preferred_element_type=f32)
+            m_tn = jnp.maximum(m_t, jnp.max(logits_t, axis=1))
+            l_t = (l_t * jnp.exp(m_t - m_tn)
+                   + jnp.sum(jnp.exp(logits_t - m_tn[:, None]), axis=1))
+        else:
+            m_tn = m_t
+        return (m_new, m_tn, l_t, acc), None
 
-        def body(carry, xb):
-            m, m_t, l_t, acc = carry
-            A_b, B_b = xb
-            logits = jnp.dot(Xa, A_b.T, preferred_element_type=f32)
-            m_new = jnp.maximum(m, jnp.max(logits, axis=1))
-            r = jnp.exp(m - m_new)
-            p = jnp.exp(logits - m_new[:, None])
-            acc = acc * r[:, None] + jnp.dot(p, B_b,
-                                             preferred_element_type=f32)
-            if collect_true:
-                logits_t = jnp.dot(Xt, A_b.T, preferred_element_type=f32)
-                m_tn = jnp.maximum(m_t, jnp.max(logits_t, axis=1))
-                l_t = (l_t * jnp.exp(m_t - m_tn)
-                       + jnp.sum(jnp.exp(logits_t - m_tn[:, None]), axis=1))
-            else:
-                m_tn = m_t
-            return (m_new, m_tn, l_t, acc), None
-
-        init = (jnp.full((C,), neg), jnp.full((C,), neg),
-                jnp.zeros((C,), f32), jnp.zeros((C, nB), f32))
-        (m_b, m_bt, l_bt, acc), _ = jax.lax.scan(body, init, xs)
-        a_s = acc[:, :Hp]
-        a_ss = acc[:, Hp:Hp + Hp * Hp]
-        a_vc = acc[:, Hp + Hp * Hp:Hp + Hp * Hp + K]
-        a_abs = acc[:, nB - 2]
-        l_b = acc[:, nB - 1]
+    init = (jnp.full((C,), neg), jnp.full((C,), neg),
+            jnp.zeros((C,), f32), jnp.zeros((C, nB), f32))
+    (m_b, m_bt, l_bt, acc), _ = jax.lax.scan(body, init, xs)
+    a_s = acc[:, :Hp]
+    a_ss = acc[:, Hp:Hp + Hp * Hp]
+    a_vc = acc[:, Hp + Hp * Hp:Hp + Hp * Hp + K]
+    a_abs = acc[:, nB - 2]
+    l_b = acc[:, nB - 1]
 
     # ---- combine the two partial softmaxes (and, sharded, across devices) ---
     M = jnp.maximum(m_a, m_b)
@@ -619,10 +586,7 @@ def linear_et_estep(y: jnp.ndarray, weight: jnp.ndarray, W: jnp.ndarray,
                     chunk: int = 2048, state_axis=None,
                     n_state_shards: int = 1, compute_dtype=None,
                     collect_phi: bool = False, slot_onehot=None,
-                    s_block: int = 0, pallas_bigs: bool = False,
-                    pallas_interpret: bool = False,
-                    pallas_precise: bool = False,
-                    collect_true: bool = True
+                    s_block: int = 0, collect_true: bool = True
                     ) -> Tuple[jnp.ndarray, Dict[str, jnp.ndarray]]:
     """Full-shard E-step with chunked online accumulation.
 
@@ -642,8 +606,8 @@ def linear_et_estep(y: jnp.ndarray, weight: jnp.ndarray, W: jnp.ndarray,
             raise ValueError("s_block (the big-S online-logsumexp path) "
                              "does not compose with Phi learning; use one "
                              "or the other")
-        # ADVICE r2 (low): same one-hot HBM guard as the standard path —
-        # the bigs formulation is built around the dense one-hot (proj/T/G
+        # same one-hot memory guard as the standard path — the bigs
+        # formulation is built around the dense one-hot (proj/T/G
         # and the suff-stat scatters), so an oversized (chunk, Hp, H)
         # one-hot is an error here rather than a silent fallback
         if (min(N, chunk) * Hp * H * 4) > 512 * 1024 * 1024:
@@ -658,13 +622,10 @@ def linear_et_estep(y: jnp.ndarray, weight: jnp.ndarray, W: jnp.ndarray,
                        compute_dtype=compute_dtype,
                        state_axis=state_axis,
                        n_state_shards=n_state_shards,
-                       pallas_bigs=pallas_bigs,
-                       pallas_interpret=pallas_interpret,
-                       pallas_precise=pallas_precise,
                        collect_true=collect_true)
     else:
-        # one-hot GEMM gathers are the TPU fast path; fall back to index
-        # gathers/scatters only when the (chunk, Hp, H) one-hot would be huge
+        # one-hot GEMM gathers by default; index gathers/scatters when the
+        # (chunk, Hp, H) one-hot would be huge
         dense = (min(N, chunk) * Hp * H * 4) <= 512 * 1024 * 1024
 
         body = partial(_chunk_estats, W=W, gram=gram, gram_diag=gram_diag,
@@ -711,17 +672,12 @@ def chunked_decode(fn, y: jnp.ndarray, chunk: int) -> Dict[str, jnp.ndarray]:
     row-chunks with zero padding to the chunk boundary and slice the outputs
     back to N (bounds per-chunk intermediates at any batch size).
 
-    Transposed-output convention (round 3, the decode-anomaly fix): keys
-    ending in ``_T`` carry the datapoint dimension LAST (e.g. s_mean as
-    (H, C)); they are transposed back and the suffix stripped here, OUTSIDE
-    the chunk loop.  Why: jax.profiler traced 5.1 ms/131k to ONE
-    dynamic-update-slice — XLA stacks per-chunk (C, H) outputs into a
-    (nc, C, H) loop buffer whose layout follows the producing GEMM
-    (feature-major, {1,0,2}), so every chunk's write is a partial-tile
-    read-modify-write.  With the datapoint dim last the stacked buffer's
-    minor dim is the chunk axis, writes are full-tile, and the single
-    transpose per output happens once on the final array (measured 17.6 ->
-    13.4 ms for q+moments, 19.9 -> 15.0 ms for the full compact decode)."""
+    Transposed-output convention: keys ending in ``_T`` carry the datapoint
+    dimension LAST (e.g. s_mean as (H, C)); they are transposed back and the
+    suffix stripped here, OUTSIDE the chunk loop, so the stacked per-chunk
+    loop buffer's minor dim is the chunk axis and each chunk writes whole
+    tiles; the single transpose per output happens once on the final
+    array."""
     N = y.shape[0]
 
     def unT(out, n_pad, stacked):
@@ -753,11 +709,8 @@ def top_states_outputs(q: jnp.ndarray, L: int, H: int, K: int,
     """Top-L posterior states from the q columns ``[zero | singles | multi]``.
 
     Shared by the linear/GSC/max decoders.  ``dense=True`` returns full-H
-    vectors ``top_states (N, L, H)`` — measured at ~17 ms/131k extra at the
-    patches config (the (N, L, H) construction is layout-hostile on TPU:
-    the (L=10, H=300) minor-dim tile pads ~2x and the per-datapoint
-    (L,Hp)x(Hp,H) batched GEMMs cannot use the MXU; tools/ablate_decode.py).
-    ``dense=False`` returns the compact form instead (~2.5 ms):
+    vectors ``top_states (N, L, H)``; ``dense=False`` returns the compact
+    form instead:
 
       top_single_unit  (N, L) int32  unit index of singleton states, -1 else
       top_single_value (N, L)        its value (0 for zero/multi states)
@@ -783,24 +736,18 @@ def top_states_outputs(q: jnp.ndarray, L: int, H: int, K: int,
         single_vec = jax.nn.one_hot(sh, H, dtype=f32) * sv[..., None]
         mcv = multi_states[s_idx] * is_multi[..., None]   # (N, L, Hp)
         if isinstance(onehot, (list, tuple)):
-            # per-slot fused scatter (round 4): Hp broadcast mult-adds on
-            # the (N, L, H) output — no stacked (N, Hp, H) tensor, no
-            # batched-GEMM emitter (which forced layout copies in HLO)
+            # per-slot fused scatter: Hp broadcast mult-adds on the
+            # (N, L, H) output — no stacked (N, Hp, H) tensor
             out = single_vec
             for a, hot in enumerate(onehot):
                 out = out + mcv[:, :, a][:, :, None] * hot[:, None, :]
         else:
             out = single_vec + jnp.einsum("nla,nah->nlh", mcv, onehot)
-        # _T convention (see chunked_decode): without it the (C, L, H)
-        # per-chunk tensor stacks into an RMW-amplified loop buffer —
-        # 11.3 ms of the 37 ms dense decode in the round-4 device trace
+        # _T convention (see chunked_decode)
         return {"top_probs_T": top_q.T,
                 "top_states_T": jnp.transpose(out, (1, 2, 0))}
-    # compact: states gathered by one-hot GEMM (index gathers from the
-    # (S, Hp) table measured ~40% slower, tools/ablate_decode.py); outputs
-    # transposed (datapoint dim last) per the chunked_decode _T convention
-    # — small (C, L) per-chunk tiles stack into RMW-amplified loop buffers
-    # otherwise (the round-3 decode fix)
+    # compact: states gathered by one-hot GEMM; outputs transposed
+    # (datapoint dim last) per the chunked_decode _T convention
     su = jax.nn.one_hot(s_idx, S, dtype=f32) * is_multi[..., None]
     mcv = jnp.dot(su.reshape(N * L, S), multi_states,
                   preferred_element_type=f32).reshape(N, L, Hp)
@@ -823,70 +770,6 @@ def densify_top_states(out: Dict[str, jnp.ndarray], H: int) -> jnp.ndarray:
     cand_hot = jax.nn.one_hot(out["cand"], H, dtype=f32)     # (N, Hp, H)
     multi_vec = jnp.einsum("nla,nah->nlh", out["top_cand_states"], cand_hot)
     return single_vec + multi_vec
-
-
-def top_states_from_topk(top_q: jnp.ndarray, top_u: jnp.ndarray,
-                         H: int, K: int, values: jnp.ndarray,
-                         multi_states: jnp.ndarray, cand: jnp.ndarray,
-                         dense: bool) -> Dict[str, jnp.ndarray]:
-    """Decode the canonical top-L (prob, index) pairs into the inference
-    output fields — the post-processing stage of the fused decode kernel
-    (`ops/linear_pallas.py::linear_et_decode_pallas` emits top_q/top_u with
-    exactly `top_states_outputs`' union layout and tie-break).  Outputs are
-    datapoint-first (no ``_T`` convention: the kernel writes full per-tile
-    blocks, so there is no chunk-loop buffer to layout-protect)."""
-    f32 = jnp.float32
-    N, L = top_q.shape
-    S, Hp = multi_states.shape
-    u = top_u - 1                                         # -1 -> zero state
-    is_single = (u >= 0) & (u < H * K)
-    sh = jnp.where(is_single, u // K, 0)
-    sv = jnp.where(is_single, values[jnp.clip(u % K, 0, K - 1)], 0.0)
-    s_idx = jnp.clip(u - H * K, 0, S - 1)
-    is_multi = u >= H * K
-    su = jax.nn.one_hot(s_idx, S, dtype=f32) * is_multi[..., None]
-    mcv = jnp.dot(su.reshape(N * L, S), multi_states,
-                  preferred_element_type=f32).reshape(N, L, Hp)
-    if dense:
-        single_vec = jax.nn.one_hot(sh, H, dtype=f32) * sv[..., None]
-        out = single_vec
-        for a in range(Hp):
-            hot = jax.nn.one_hot(cand[:, a], H, dtype=f32)    # (N, H)
-            out = out + mcv[:, :, a][:, :, None] * hot[:, None, :]
-        return {"top_probs": top_q, "top_states": out}
-    return {"top_probs": top_q,
-            "top_single_unit":
-                jnp.where(is_single, sh, -1).astype(jnp.int32),
-            "top_single_value": sv,
-            "top_cand_states": mcv}
-
-
-def linear_et_posterior_pallas(y: jnp.ndarray, W: jnp.ndarray, sigma2,
-                               log_odds: jnp.ndarray, sa: LinearStateArrays,
-                               Hp: int, signed_select: bool, top_L: int = 10,
-                               beta=1.0, prior_beta=1.0,
-                               dense_states: bool = True,
-                               interpret: bool = False
-                               ) -> Dict[str, jnp.ndarray]:
-    """Fused-kernel posterior decode (round 5, VERDICT r4 #3): the q stage
-    runs in VMEM (`ops/linear_pallas.py::linear_et_decode_pallas`) and only
-    (N, L)/(N, H)-sized outputs reach HBM; the recon GEMM and the top-state
-    decode are cheap XLA post-processing.  Output contract identical to
-    `linear_et_posterior`."""
-    f32 = jnp.float32
-    from prosper_tpu.ops.linear_pallas import linear_et_decode_pallas
-    F, s_mean, top_q, top_u, cand = linear_et_decode_pallas(
-        y, W, sigma2, log_odds, sa, Hp, signed_select, top_L,
-        beta, prior_beta, interpret=interpret)
-    out = top_states_from_topk(top_q, top_u, W.shape[1],
-                               sa.values.shape[0], jnp.asarray(sa.values),
-                               jnp.asarray(sa.states), cand, dense_states)
-    if not dense_states:
-        out["cand"] = cand
-    out.update({"s_mean": s_mean,
-                "recon": jnp.dot(s_mean, W.T, preferred_element_type=f32),
-                "F": F})
-    return out
 
 
 def linear_et_posterior(y: jnp.ndarray, W: jnp.ndarray, sigma2,
@@ -923,7 +806,7 @@ def _linear_et_posterior_chunk(y: jnp.ndarray, W: jnp.ndarray,
       top_states (N, L, H)  full-H latent vectors of the L best states
                             (``dense_states=True``; with False the compact
                             fields from ``top_states_outputs`` + ``cand``
-                            replace it — ~1.7x faster at serving scale)
+                            replace it)
       top_probs  (N, L)     their posterior probabilities
       s_mean     (N, H)     posterior mean of s
       recon      (N, D)     W @ <s>

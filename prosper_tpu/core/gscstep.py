@@ -13,7 +13,7 @@ support:
   b_s = W_s^T y / sigma^2 + (mu/psi) 1       (natural parameter)
   q(z|y,s) = N(kappa_s = M_s^-1 b_s,  Sigma_s = M_s^-1)
 
-TPU formulation: supports have varying size k, which would mean ragged
+Formulation: supports have varying size k, which would mean ragged
 linear algebra.  We instead pad every support system to a fixed (Hp x Hp)
 matrix with identity rows/columns on inactive slots:
 
@@ -47,13 +47,12 @@ from prosper_tpu.core.select import top_hprime_candidates
 # ---------------------------------------------------------------------------
 # Hand-rolled batched small-matrix linalg.
 #
-# jnp.linalg.cholesky / cho_solve on (B, Hp, Hp) batches lower to generic
-# blocked LAPACK-style loops that are pathologically slow on TPU for tiny
-# matrices.  Since Hp is a small static constant (<= ~10), we unroll the
-# Cholesky-Banachiewicz recurrences over columns: every step is a fully
-# vectorised VPU op over the whole (chunk*S) batch.  This is the "batched
-# small-matrix cholesky over states — MXU/VPU-friendly" design called out in
-# SURVEY.md §7 M3.
+# Since Hp is a small static constant (<= ~10), the Cholesky-Banachiewicz
+# recurrences are unrolled over columns instead of calling
+# jnp.linalg.cholesky / cho_solve on (B, Hp, Hp) batches: every step is one
+# vectorised elementwise op over the whole (chunk*S) batch (the "batched
+# small-matrix cholesky over states" design of SURVEY.md §7 M3).  Whether
+# the batched library calls do as well on the GPU is open (ROADMAP 1.4).
 # ---------------------------------------------------------------------------
 
 def chol_small(M: jnp.ndarray) -> jnp.ndarray:
@@ -118,11 +117,10 @@ def cho_inverse_small(L: jnp.ndarray) -> jnp.ndarray:
 
 # ---------------------------------------------------------------------------
 # Batch-last small linalg: the (C,S,Hp,Hp) layout above puts Hp (<=10) in
-# the minor (lane) dimension — 5-30% occupancy of a 128-lane vreg, and every
-# unrolled step materialises a tiny-minor tensor.  The batch-last form keeps
-# each matrix ENTRY as a flat (C*S,) vector (fully packed lanes) and unrolls
-# the recurrences over scalar indices: ~Hp^3 fused elementwise ops over big
-# vectors instead of ~Hp^2 ops over badly-laid-out tensors.
+# the minor dimension, so every unrolled step materialises a tensor with a
+# tiny minor axis.  The batch-last form keeps each matrix ENTRY as a flat
+# (C*S,) vector and unrolls the recurrences over scalar indices: ~Hp^3 fused
+# elementwise ops over big vectors.
 # ---------------------------------------------------------------------------
 
 def chol_bl(M):
@@ -194,10 +192,9 @@ def _gsc_level_plan(act_np):
     States from binary_state_space are size-ordered, so each level is a
     contiguous [off, off+S_m) slice of the state axis.  Returns
     [(off, idx_m)] with idx_m the (S_m, m) active-slot indices per state.
-    The on-chip ablation (tools/ablate_gsc.py) showed the batched cholesky
-    is THE GSC bottleneck (15 -> 5.2 M dp/s); the padded Hp x Hp systems
-    spend ~m^3/Hp^3 of their recurrence work on real entries (8/216 at
-    m=2), so solving each level at its true size removes ~90% of it.
+    The padded Hp x Hp systems spend ~m^3/Hp^3 of their recurrence work on
+    real entries (8/216 at m=2), so solving each level at its true size
+    removes ~90% of it.
     """
     import numpy as np
 
@@ -217,7 +214,7 @@ def _gsc_level_plan(act_np):
 
 
 def _gsc_shard_level_arrays(act_np, n_shards: int):
-    """Level-ALIGNED shard layout (host combinatorics, VERDICT r2 #8).
+    """Level-ALIGNED shard layout (host combinatorics).
 
     SPMD state sharding traces ONE program for every shard, so per-shard
     static level plans are only possible if every shard's local slice has
@@ -294,8 +291,7 @@ def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
 
     # ---- local slice of the enumerated supports (SURVEY §5.7), in the
     # LEVEL-ALIGNED layout so every shard keeps the level-grouped
-    # batch-last solver (VERDICT r2 #8; was: padded Hp x Hp fallback at
-    # ~1/4 the throughput).  batch_last=False still selects the padded
+    # batch-last solver.  batch_last=False still selects the padded
     # tensor path (kept as the oracle formulation + for tests).
     sharded = state_axis is not None and n_state_shards > 1
     shard_levels = None
@@ -333,11 +329,8 @@ def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
     P = jnp.dot(y, W, preferred_element_type=f32)                       # (C,H)
     w_norm = jnp.sqrt(jnp.maximum(gram_diag, 1e-30))
     if batch_last:
-        # per-slot formulation (round 4, HLO-trace-driven): the stacked
-        # (C,Hp,H) one-hot and the batched (C,Hp,Hp) T/G einsums lowered to
-        # batch-in-sublanes emitters bracketed by layout copies — 3.7 ms of
-        # copies + 3.7 ms of tiny batched GEMMs per 11 ms step (x16 chunks,
-        # tools/profile_gsc_step.py).  Shared machinery: core/etstep.py.
+        # per-slot formulation: no stacked (C,Hp,H) one-hot and no batched
+        # (C,Hp,Hp) T/G einsums.  Shared machinery: core/etstep.py.
         from prosper_tpu.core.etstep import per_slot_candidates
         _, hots, proj, G_flat = per_slot_candidates(P, w_norm, Hp, True,
                                                     gram)
@@ -514,9 +507,9 @@ def _chunk_gsc_estats(y, w, W, gram, gram_diag, sigma2, pi, mu, psi,
     Sig1 = 1.0 / M1                                                     # (H,)
     szsz_diag_single = q_single * (Sig1[None, :] + kappa1 ** 2)         # (C,H)
 
-    # scatters -> one-hot GEMMs (TPU fast path; see core/select.py)
+    # scatters -> one-hot GEMMs (see core/select.py)
     if batch_last:
-        # per-slot fused scatters (layout-copy-free; shared w/ etstep.py)
+        # per-slot fused scatters (shared w/ etstep.py)
         from prosper_tpu.core.etstep import (slot_scatter_mat,
                                              slot_scatter_vec)
         sz_full = slot_scatter_vec(sz_single, sz_cand, hots)

@@ -13,10 +13,10 @@ hard winner by default (rho <= 0), or an annealed softened max
 A propto exp(rho (K_h - K_max)/|K_max|) when the 'rho' annealing channel is
 scheduled (scale-invariant and sign-safe; rho -> inf gives the hard winner).
 
-TPU formulation: unlike the linear family, `max` admits no Gram shortcut, so
+Formulation: unlike the linear family, `max` admits no Gram shortcut, so
 the reconstruction ybar IS materialised per (datapoint, state, dim) — but
 only for one (chunk x S x D) tile at a time, with the chunk size chosen so
-the tile stays well inside HBM working set.  The winner indices from the
+the tile stays well inside the device's working memory.  The winner indices from the
 max computation are reused for the M-step responsibilities, so the heavy
 tile is built exactly once.  The zero state and the H singleton states are
 closed-form as in the linear family (SURVEY.md §2 "ET base").
@@ -81,11 +81,8 @@ def _dp_winner_tile(Wc, states_np, magnitude, collect=("ybar",)):
     per-level plan and 'added slot wins' masks for the responsibility flow
     DP.  Only requested tensors are concatenated/materialised — the hard
     path needs just ybar (key feeds only the softened-max branch, which
-    rebuilds it inside its own lax.cond branch so the HBM traffic is paid
-    only when rho > 0 actually executes).  A variant folding y_dot/ybar2
-    reductions level-by-level into the DP (no ybar concat at all) measured
-    *slower* on chip (2.0 vs 2.4 M dp/s — the per-level reduction chains
-    defeat XLA fusion), so the tile formulation stays.
+    rebuilds it inside its own lax.cond branch so the memory traffic is
+    paid only when rho > 0 actually executes).
     """
     C, Hp, D = Wc.shape
     f32 = jnp.float32
@@ -315,7 +312,7 @@ def _chunk_max_estats(y, w, W, gram_diag, sigma2, log_odds_scalar,
         # defined for any sign of W (a ratio form K^rho/K_max^rho misbehaves
         # for negative losers), bounded <= 1, and -> the hard winner as
         # rho -> inf.  Needs the full (C,S,D) winner-key tile; in the DP
-        # path it is rebuilt HERE so the tile only costs HBM traffic when
+        # path it is rebuilt HERE so the tile only costs memory traffic when
         # the rho>0 branch actually executes at runtime
         if dp_aux is not None:
             import numpy as _np
@@ -475,7 +472,7 @@ def max_et_estep(y: jnp.ndarray, weight: jnp.ndarray, W: jnp.ndarray,
     """Full-shard max-superposition E-step, chunked like linear_et_estep.
 
     ``chunk`` bounds the (chunk, S, D) reconstruction tile; pick it so
-    chunk * S * D * ~16 bytes fits comfortably in HBM working set.
+    chunk * S * D * ~16 bytes fits comfortably in device memory.
     With ``state_axis`` the enumerated states are sharded over that mesh
     axis (SURVEY §5.7) and the caller must psum the sums over it as well.
     """

@@ -7,7 +7,7 @@ Reference behavior: SURVEY.md §2 "ET base" —
     fraction, plus the ET "Ncut" cut keeping the best-explained datapoints
     as ``anneal['Ncut_factor']`` ramps up.
 
-TPU-native design: the reference uses boolean indexing (dynamic shapes).
+Design: the reference uses boolean indexing (dynamic shapes).
 Under jit everything must stay statically shaped, so both mechanisms become
 *masks* over the full shard:
   * ``partial`` -> an exact-count random mask (top-k over iid uniforms),
@@ -46,19 +46,19 @@ def top_hprime_candidates_dense(P_full: jnp.ndarray, w_norm: jnp.ndarray,
                                 Hp: int, signed: bool):
     """Top-H' candidates plus their one-hot selection matrix.
 
-    TPU-first: ``lax.top_k`` and index gathers/scatters lower poorly on TPU
-    (profiled at >100x the cost of the E-step GEMMs), so selection is Hp
-    iterated argmaxes — pure vector ops — and the one-hot matrix
-    ``onehot (N, Hp, H)`` is built from the same comparisons.  Every
+    Selection is Hp iterated argmaxes — pure vector ops — and the one-hot
+    matrix ``onehot (N, Hp, H)`` is built from the same comparisons.  Every
     downstream gather (candidate projections, Gram blocks) and scatter
-    (sufficient statistics) then becomes an MXU matmul against ``onehot``.
+    (sufficient statistics) then becomes a matmul against ``onehot``.
+    Whether ``lax.top_k`` with index gathers does better on the GPU is open
+    (ROADMAP 1.4).
 
     Tie behaviour matches lax.top_k (descending score, lowest index first).
     Returns (cand (N,Hp) int32, onehot (N,Hp,H) float32).
 
     Implemented as a stack over `top_hprime_candidate_slots` so there is ONE
     selection loop (scoring/tie-breaking cannot drift between the dense and
-    per-slot forms — advisor round 4).
+    per-slot forms).
     """
     cand, hots = top_hprime_candidate_slots(P_full, w_norm, Hp, signed)
     return cand, jnp.stack(hots, axis=1)                             # (N,Hp,H)
@@ -69,11 +69,9 @@ def top_hprime_candidate_slots(P_full: jnp.ndarray, w_norm: jnp.ndarray,
     """Top-H' candidates as Hp separate per-slot (N, H) one-hot masks.
 
     Same selection as `top_hprime_candidates_dense` but WITHOUT stacking the
-    hits into the (N, Hp, H) tensor: the GSC E-step (core/gscstep.py) showed
-    that every consumer of the stacked tensor lowers to a batch-in-sublanes
-    emitter bracketed by layout copies (~34% of its device time, HLO trace
-    round 4), while the per-slot (N, H) masks keep every downstream
-    gather/scatter a plain large GEMM in the same layout class as ``y @ W``.
+    hits into the (N, Hp, H) tensor: the per-slot (N, H) masks keep every
+    downstream gather/scatter a plain large GEMM in the same layout as
+    ``y @ W``.
     Returns (cand (N,Hp) int32, hots: list of Hp (N,H) float32 masks).
     """
     N, H = P_full.shape
@@ -96,9 +94,8 @@ def top_hprime_candidate_slots(P_full: jnp.ndarray, w_norm: jnp.ndarray,
 def top_l_argmax(q: jnp.ndarray, L: int):
     """``lax.top_k`` replacement via L iterated argmaxes (decode hot path).
 
-    Same rationale as `top_hprime_candidates_dense`: top_k lowers poorly on
-    TPU (measured ~10 ms/131k-batch at 455 columns vs ~3 ms for 10 argmax
-    passes).  Assumes non-negative entries (posterior probabilities);
+    Same formulation as `top_hprime_candidates_dense`.  Assumes
+    non-negative entries (posterior probabilities);
     ties break like top_k (descending value, lowest index first).
     Returns (top_q (N,L), top_u (N,L) int32).
     """

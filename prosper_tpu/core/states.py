@@ -46,7 +46,7 @@ class StateSpace:
         ``abs_states[:, None]``).
     values : (K,) float32 — the non-zero latent values.
     outer : (S, Hp*Hp) float32 — flattened per-state outer products s s^T,
-        precomputed so that <s s^T> accumulation is a plain GEMM on the MXU.
+        precomputed so that <s s^T> accumulation is a plain GEMM.
     """
 
     states: np.ndarray

@@ -1,11 +1,10 @@
 """Dictionary-recovery diagnostics: classify why atoms were missed.
 
-TPU-build addition beyond the reference (no counterpart in SURVEY.md §2 —
-the reference only counts recovered bars).  Round-1/2 experience at the
-patches scale showed that *guessing* recovery levers wastes chip runs while
-one host-side diagnosis of a converged dictionary classifies every failure
-immediately (ROUND1.md / ROUND2.md).  The measured signatures this module
-encodes:
+An addition beyond the reference (no counterpart in SURVEY.md §2 — the
+reference only counts recovered bars).  At the patches scale, *guessing*
+recovery levers wastes device runs while one host-side diagnosis of a
+converged dictionary classifies every failure immediately.  The measured
+signatures this module encodes:
 
 * **blend** — one learned column ``w ~= a_i + a_j`` fuses two ground-truth
   atoms with near-disjoint supports.  Signature: its top-2 cosines against
@@ -143,11 +142,10 @@ def split_blend_sweep(W: np.ndarray, Y: np.ndarray,
                       support_frac: float = 0.25,
                       contrast_threshold: float = 0.22,
                       relaxed_dup_threshold: float = 0.65) -> Dict:
-    """Offline blend-split sweep over a CONVERGED dictionary (round 4,
-    VERDICT r3 #5).
+    """Offline blend-split sweep over a CONVERGED dictionary.
 
-    Diagnosis of the 3-6 atom recovery tail (tools/patches_seed2_diag.npz,
-    ROUND4.md): every residual miss is a *blend* column fusing two atoms
+    Diagnosis of the 3-6 atom recovery tail (tools/patches_seed2_diag.npz):
+    every residual miss is a *blend* column fusing two atoms
     (support ~2x median, two moderate gt-cosines), while the free capacity
     sits in junk columns (support >= ~3-4x median, no clean structure) and
     weaker duplicates.  The ONLINE splitter (EM.revive_duplicates +
@@ -163,8 +161,8 @@ def split_blend_sweep(W: np.ndarray, Y: np.ndarray,
          junk_support_factor x median are junk -> appended to donors;
       4. each successful split writes one part over the blend column and
          one over a donor;
-      5. (round 5 — the taxonomy's "missing-no-donor" / "blend-no-donor"
-         classes) when splits remain but donors ran out, the donor pool
+      5. (the taxonomy's "missing-no-donor" / "blend-no-donor" classes)
+         when splits remain but donors ran out, the donor pool
          extends with weaker members of RELAXED duplicate pairs: learned
          coherence above ``relaxed_dup_threshold``.  Measured basis
          (seed-2 taxonomy dictionaries): the learned off-diagonal
@@ -202,7 +200,7 @@ def split_blend_sweep(W: np.ndarray, Y: np.ndarray,
             donors.append(int(h))
             used.add(int(h))
 
-    # support BAND (round-4 calibration on seed 2): true two-atom blends
+    # support BAND: true two-atom blends
     # sit at ~1.6-1.9x the median support; columns at >= junk_support_factor
     # x median are unstructured junk — they sometimes pass the coact split
     # spuriously, and splitting them burns donors, so they go STRAIGHT to
@@ -217,7 +215,7 @@ def split_blend_sweep(W: np.ndarray, Y: np.ndarray,
              if support_factor * med_sup <= support[h]
              < junk_support_factor * med_sup and int(h) not in used]
     # contrast gate 0.22 (vs 0.30 online): the support band above already
-    # excludes single atoms, and the seed-2 diagnosis (ROUND4.md) measured
+    # excludes single atoms, and the seed-2 diagnosis measured
     # true blends at contrast 0.26-0.31
     splits_pending, failed = [], []
     for h in cands:

@@ -2,7 +2,7 @@
 
 Reference behavior: SURVEY.md §2 "Example scripts" / §5.8 — the reference
 reads HDF5 image-patch datasets with each MPI rank loading its
-``stride_data`` slice.  TPU-native equivalents:
+``stride_data`` slice.  Equivalents here:
 
   * ``load_h5_shard``   — process-local contiguous slice of an HDF5 dataset
                           (multi-host: each process reads only its shard),
@@ -12,7 +12,9 @@ reads HDF5 image-patch datasets with each MPI rank loading its
   * ``extract_patches`` — cut random patches from images, optional DC
                           removal / whitening (standard sparse-coding prep),
   * ``synthetic_patches`` — 1/f-correlated Gaussian patches for benchmarks
-                          when no real dataset is on disk.
+                          when no real dataset is on disk,
+  * ``planted_dictionary`` — a random sparse dictionary to generate
+                          recoverable patch-width data from.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ def load_h5_shard(path: str, dataset: str = "patches",
                   parts: Optional[int] = None,
                   index: Optional[int] = None) -> np.ndarray:
     """Read this process's contiguous slice of an (N, D) HDF5 dataset."""
-    import h5py
-    with h5py.File(path, "r") as f:
+    from prosper_tpu.io import import_h5py
+    with import_h5py().File(path, "r") as f:
         ds = f[dataset]
         N = ds.shape[0]
         first, last = stride_data(N, parts, index)
@@ -105,7 +107,20 @@ def synthetic_patches(N: int, patch_size: int = 16, seed: int = 0,
 
 def write_h5_dataset(path: str, y: np.ndarray,
                      dataset: str = "patches") -> None:
-    import h5py
-    with h5py.File(path, "w") as f:
+    from prosper_tpu.io import import_h5py
+    with import_h5py().File(path, "w") as f:
         f.create_dataset(dataset, data=np.asarray(y, np.float32),
                          chunks=(min(4096, y.shape[0]),) + y.shape[1:])
+
+
+def planted_dictionary(D: int, H: int, active_pixels: int = 8,
+                       intensity: float = 10.0, seed: int = 0) -> np.ndarray:
+    """Random sparse (D, H) dictionary: each column lights a few random
+    pixels (low coherence -> recoverable; the patch-width stand-in for
+    bars)."""
+    rng = np.random.default_rng(seed)
+    W = np.zeros((D, H), np.float32)
+    for h in range(H):
+        idx = rng.choice(D, size=active_pixels, replace=False)
+        W[idx, h] = intensity
+    return W

@@ -16,7 +16,7 @@ breakpoints, where position is either a fraction in [0,1] of the total steps
 or an absolute iteration index (ints > 1).  Values are linearly interpolated
 between breakpoints and clamped outside.
 
-TPU note: every channel is returned as a *scalar* and passed into the jitted
+Every channel is returned as a *scalar* and passed into the jitted
 EM step as a traced argument, so changing annealing values never triggers a
 recompile (SURVEY.md §3.5).
 """
@@ -80,7 +80,7 @@ class LinearAnnealing:
         # fractional and absolute breakpoints (e.g. [(0.9, 5.0), (5, 1.0)])
         # is ordered differently in raw-spec space than in iteration space,
         # and interpolating over a non-monotone point list silently drops
-        # breakpoints (ADVICE r1, medium)
+        # breakpoints
         pts = sorted(((self._abs_pos(p), v) for p, v in spec),
                      key=lambda pv: pv[0])
         x = float(step)

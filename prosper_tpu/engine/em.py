@@ -5,7 +5,7 @@ EM`` (mount unavailable): holds model/anneal/data/lparams, and ``run()``
 loops ``model.step`` + ``dlog.append_all`` + ``anneal.next`` until the
 schedule is finished.
 
-TPU-native design: the outer loop stays in Python (annealing, logging and
+Design: the outer loop stays in Python (annealing, logging and
 checkpointing are host concerns — SURVEY.md §7 "engine/em.py"); the entire
 inner iteration (noisify -> masks -> E-step -> psum -> M-step) is ONE jitted
 function, optionally shard_map'd over a device mesh by MeshRuntime.  Anneal
@@ -31,7 +31,7 @@ def coactivation_split(w_b: np.ndarray, Y: np.ndarray,
                        contrast_threshold: float = 0.3):
     """Split a suspected blend column into its two constituent atoms.
 
-    Diagnosis (ROUND1.md): at the patches scale the stable failures are
+    Diagnosis: at the patches scale the stable failures are
     *blends* — one learned column w_b ~= a1 + a2 with near-disjoint
     supports (norm ~sqrt(2)x median, doubled support).  Among datapoints
     that correlate with w_b, most contain only ONE of the two atoms
@@ -95,19 +95,18 @@ def coactivation_split(w_b: np.ndarray, Y: np.ndarray,
 def run_restarts(build_em, n_restarts: int, scanned: bool = True):
     """Run ``n_restarts`` independent EM trainings, keep the best final F.
 
-    EM on these models is multi-modal (ROUND1/2: stable blend optima at the
-    patches scale); restarting from different inits and selecting by final
-    mean free energy is the classic remedy (VERDICT r1 next-round #6's
-    first lever — complementary to the online revival/splitting escapes).
+    EM on these models is multi-modal (stable blend optima at the patches
+    scale); restarting from different inits and selecting by final mean
+    free energy is the classic remedy (complementary to the online
+    revival/splitting escapes).
 
-    Measured head-to-head (round 5, BASELINE.md "run_restarts vs the
-    recovery protocol"): for the linear-family dictionary-recovery
-    protocol this is SUPERSEDED — best-of-2 restarts (240 iters) reached
-    298/300 in 1051 s where one protocol run (revival + reseed + sweeps,
-    ~190 iters) reached 300/300 in 404 s; independent inits land in the
-    same blend-limited basin.  Kept for genuinely multi-modal model
-    selection (e.g. MoG/MoP cluster counts) where basin diversity is the
-    point.
+    For the linear-family dictionary-recovery protocol this is superseded:
+    in a head-to-head on one seed, best-of-2 restarts (240 iters) recovered
+    298/300 atoms where one protocol run (revival + reseed + sweeps, ~190
+    iters) recovered 300/300 in less time; independent inits land in the
+    same blend-limited basin (tools/run_restarts_compare.py).  Kept for
+    genuinely multi-modal model selection (e.g. MoG/MoP cluster counts)
+    where basin diversity is the point.
 
     ``build_em(i)`` must return a FRESH ``EM`` (model/anneal/data wiring,
     seeded per restart) — annealing schedules are stateful, so they cannot
@@ -141,7 +140,8 @@ class EM:
     dlog : optional DataLog; per-iteration channels are appended to it.
     log_params_every : also log full W snapshots every k iterations
         (the reference logs W every iteration; for big models that is pure
-        HBM->host traffic, so it is rate-limited here; set 1 for parity).
+        device->host traffic, so it is rate-limited here; set 1 for
+        parity).
     """
 
     def __init__(self, model, anneal, data: Dict, params: Optional[Dict] = None,
@@ -163,7 +163,7 @@ class EM:
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
         #: (every, cosine_threshold[, stop_frac[, dead_norm_frac]]) or None —
-        #: TPU-build addition beyond the reference: near-parallel dictionary
+        #: addition beyond the reference: near-parallel dictionary
         #: columns fight over the same atom (a local optimum the annealing
         #: cannot escape); periodically re-initialising the weaker duplicate
         #: to a random datapoint direction raised planted-dictionary recovery
@@ -203,9 +203,9 @@ class EM:
         if self.split_coact and self.split_norm_frac <= 0.0:
             # split_coact without a pool threshold would be a silent no-op
             # (the pool gate runs first); default to the calibrated
-            # support-size factor (ROUND2.md: blends at ~1.6-1.9x median
+            # support-size factor (blends sit at ~1.6-1.9x the median
             # support, detector threshold 1.5) so `split_coact=True` alone
-            # enables the documented behavior (review r2)
+            # enables the documented behavior
             self.split_norm_frac = 1.5
         self._coact_sample = None
         #: observability: how often each revival action fired this run
@@ -223,12 +223,12 @@ class EM:
         # periodic actions fire on boundary crossings (position advanced past
         # last_fired + every), not on exact multiples: run_scanned segments
         # end at multiples of the SMALLEST period, so a modulo test would
-        # silently skip the larger-period action (ADVICE r1)
+        # silently skip the larger-period action
         self._last_ckpt = anneal.position
         self._last_revive = anneal.position
         self.rng = jax.random.PRNGKey(seed)
 
-        # static-shape padding with valid=0 rows (VERDICT r2 weak #6): the
+        # static-shape padding with valid=0 rows: the
         # chunked E-step needs per-shard sizes that divide the chunk and
         # the mesh needs N to divide the shard count; the CLI has always
         # padded (cli.py) — the library path now applies the same rule, so
@@ -397,10 +397,8 @@ class EM:
                 np.array([s[key] for s in scheds[lo:hi]], np.float32))
                 for key in scheds[0]}
             # the segment scan is a CACHED jit with y/valid as ARGUMENTS —
-            # an eager lax.scan here recompiled on EVERY call (closure
-            # constants defeat the primitive compile cache), measured 2.6
-            # s/iter vs 85 ms/iter at the patches scale
-            # (tools/probe_scanned.py, round 4)
+            # an eager lax.scan here recompiles on EVERY call (closure
+            # constants defeat the primitive compile cache)
             carry, out = self._get_scan(hi - lo, sat, collect_params)(
                 carry, y, valid, sched_arr)
             outs.append(out)
@@ -523,7 +521,7 @@ class EM:
         if pos - self._last_revive < every or pos >= stop_frac * self.anneal.steps:
             return
         self._last_revive = pos
-        # Multi-host (VERDICT r2 #10): the gates above are host-deterministic
+        # Multi-host: the gates above are host-deterministic
         # (same anneal position everywhere), so all processes reach this
         # point together; rank 0 computes the revival on ITS local data
         # shard and the result is broadcast, preserving SPMD determinism.
@@ -552,7 +550,7 @@ class EM:
         if split_norm_frac <= 0.0:
             split_pool = []
         elif self.split_coact:
-            # measured on converged patches runs (ROUND2.md): blend columns
+            # measured on converged patches runs: blend columns
             # sit BELOW the median norm (the M-step rescales them down) but
             # their support is ~2x the planted atom's — support size is the
             # razor-sharp statistic (median 8 / p90 8 / blends 13-15), so
@@ -560,7 +558,7 @@ class EM:
             # The statistic is the diagnosis module's (the offline
             # calibration source for this detector); a norm floor excludes
             # near-dead noise columns, whose relative support is wide but
-            # which carry no blend (review r2)
+            # which carry no blend
             from prosper_tpu.data.diagnosis import dictionary_stats
             st = dictionary_stats(W)
             sup_sizes = st["support"]
@@ -570,7 +568,7 @@ class EM:
                           if sup_sizes[h] >= split_norm_frac * med_sup
                           and norms[h] >= norm_floor]
         else:
-            # symmetric-split heuristic (round 1): norm far above median —
+            # symmetric-split heuristic: norm far above median —
             # a fused pair of atoms carries ~sqrt(2)x the energy
             split_pool = [int(h) for h in np.argsort(norms)[::-1]
                           if norms[h] > split_norm_frac * median_norm]
@@ -585,7 +583,7 @@ class EM:
                 if b in used or b == col:
                     # b == col would overwrite the freed column with itself:
                     # the coact split would drop one recovered atom and the
-                    # symmetric split would cancel to a no-op (review r2)
+                    # symmetric split would cancel to a no-op
                     continue
                 if self.split_coact:
                     parts = coactivation_split(
@@ -699,7 +697,7 @@ class EM:
             # F_prev rides along so a resumed run's Ncut mask matches the
             # uninterrupted trajectory (it ranks by the previous iteration's
             # free energies — models/base.py design note).  Multi-process
-            # (VERDICT r2 #10): the global F_prev spans non-addressable
+            #: the global F_prev spans non-addressable
             # devices, so it is assembled with process_allgather — every
             # process participates (collective), rank 0 writes.
             extra = {}

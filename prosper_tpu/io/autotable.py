@@ -5,8 +5,8 @@ Reference behavior: SURVEY.md §2 "AutoTable" — ``prosper/utils/autotable.py``
 append; each append adds one row; the per-iteration parameter history doubles
 as the checkpoint/resume substrate (SURVEY.md §5.4).
 
-This implementation uses h5py (the reference uses PyTables) with chunked,
-unbounded-maxshape datasets.
+This implementation uses h5py (the reference uses PyTables; h5py is an
+optional dependency here) with chunked, unbounded-maxshape datasets.
 """
 
 from __future__ import annotations
@@ -15,20 +15,15 @@ from typing import Optional
 
 import numpy as np
 
-try:
-    import h5py
-except ImportError:  # pragma: no cover - h5py is baked into the image
-    h5py = None
+from prosper_tpu.io import import_h5py
 
 
 class AutoTable:
     """One expandable HDF5 dataset per key; ``append(name, value)`` adds a row."""
 
     def __init__(self, path: str, mode: str = "w"):
-        if h5py is None:
-            raise RuntimeError("h5py unavailable")
         self.path = path
-        self._f = h5py.File(path, mode)
+        self._f = import_h5py().File(path, mode)
 
     def append(self, name: str, value) -> None:
         value = np.asarray(value)

@@ -15,11 +15,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-import numpy as np
-
-import h5py
 import jax
 import jax.numpy as jnp
+import numpy as np
+
+from prosper_tpu.io import import_h5py
 
 
 def save(path: str, params: Dict, step: int, rng=None,
@@ -27,6 +27,7 @@ def save(path: str, params: Dict, step: int, rng=None,
     """Write a checkpoint (process 0 only; params are replicated)."""
     if jax.process_index() != 0:
         return
+    h5py = import_h5py()
     params = jax.device_get(params)
     with h5py.File(path, "w") as f:
         f.attrs["step"] = int(step)
@@ -53,6 +54,7 @@ def restore_full(path: str) -> Tuple[Dict, int, Optional[jax.Array], Dict]:
     ``extra`` carries auxiliary state needed for trajectory-faithful resume
     (e.g. the previous iteration's per-datapoint free energies F_prev, which
     drive the Ncut mask)."""
+    h5py = import_h5py()
     with h5py.File(path, "r") as f:
         step = int(f.attrs["step"])
         params = {k: jnp.asarray(np.asarray(v)) for k, v in f["params"].items()}
@@ -69,6 +71,7 @@ def resume_from_h5(path: str, param_names=("W", "pi", "sigma"),
                    row: int = -1) -> Tuple[Dict, int]:
     """Reference-style resume: read row ``row`` of a per-iteration result
     table written by StoreToH5 and return (params, step)."""
+    h5py = import_h5py()
     with h5py.File(path, "r") as f:
         params = {}
         n_rows = None

@@ -10,8 +10,8 @@ Handlers provided (reference parity + one addition):
   TextPrinter   -> rank-0 stdout            (reference: TextPrinter)
   StoreToH5     -> AutoTable-backed HDF5    (reference: StoreToH5)
   StoreToTxt    -> flat text file           (reference: StoreToTxt)
-  StoreToJSONL  -> one JSON object per append (TPU-build addition; scalars
-                   only — convenient for dashboards)
+  StoreToJSONL  -> one JSON object per append (an addition; scalars only —
+                   convenient for dashboards)
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Reference behavior: SURVEY.md §2 "Tracing" — ``prosper/utils/tracing.py``
 (mount unavailable): manual named tracepoints with timestamps per rank
 written to a trace file; enabled from scripts.
 
-TPU-native additions: ``profile_trace`` wraps ``jax.profiler.trace`` so a
+Additions: ``profile_trace`` wraps ``jax.profiler.trace`` so a
 TensorBoard/Perfetto device trace can be captured around any region
 (SURVEY.md §5.1), and tracepoints are annotated into the device timeline via
 ``jax.profiler.TraceAnnotation`` when a profile is active.

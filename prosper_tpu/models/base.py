@@ -1,4 +1,4 @@
-"""Shared model machinery — the TPU-native analogue of the reference CAModel.
+"""Shared model machinery — the analogue of the reference CAModel.
 
 Reference behavior: SURVEY.md §2 "ET base (CAModel)"
 (prosper/em/camodels/__init__.py — mount unavailable): constructor
@@ -6,7 +6,7 @@ Reference behavior: SURVEY.md §2 "ET base (CAModel)"
 preselection, partial-data selection, ``generate_data``, ``standard_init``,
 ``noisify_params``, ``inference``.
 
-Differences by design (TPU-first):
+Differences by design:
   * models are *static config objects*; all numerics are pure jittable
     functions over parameter pytrees (plain dicts of arrays),
   * the per-iteration EM step is a single fused function (noisify ->
@@ -143,9 +143,9 @@ class ETModel:
 
     #: ``inference(dense_states=None)`` auto-selects the compact layout
     #: once the dense (N, top_L, H) tensor would exceed this many bytes —
-    #: at serving scale the dense construction is layout-hostile and ~1.9x
-    #: slower (BASELINE.md round-3 decode trace; VERDICT r3 #8), while for
-    #: small/interactive batches the dense tensor is the convenient API.
+    #: at serving scale the dense tensor dominates the decode's output
+    #: traffic, while for small/interactive batches it is the convenient
+    #: API.
     DENSE_STATES_AUTO_BYTES: int = 128 * 1024 * 1024
 
     def resolve_dense_states(self, N: int, top_L: int, dense_states):
@@ -168,7 +168,7 @@ class ETModel:
         if key not in cache:
             # the runtime rides along in the cache entry so its id cannot
             # be recycled onto a different MeshRuntime while the compiled
-            # decoder is still cached (review r2)
+            # decoder is still cached
             cache[key] = ((runtime.shard_decode(builder), runtime)
                           if runtime is not None
                           else (jax.jit(builder), None))

@@ -51,7 +51,7 @@ class GSC(ETModel):
     def estep_sums(self, params, y, weight, sched, saturated: bool = False,
                    state_axis: Optional[str] = None, n_state_shards: int = 1):
         """Family E-step over one device-resident block: (F, local sums).
-        Shared by ``step_fn`` and engine/stream.py (round 4)."""
+        Shared by ``step_fn`` and engine/stream.py."""
         return gsc_et_estep(
             y, weight, params["W"], params["sigma"] ** 2, params["pi"],
             params["mu"], params["psi"], self.sa, self.Hprime,
@@ -83,7 +83,7 @@ class GSC(ETModel):
                        state_axis: Optional[str] = None,
                        n_state_shards: int = 1):
         """Mesh reduction + the GSC "richer M-step" (W, pi, sigma, mu, psi)
-        + scalars.  Shared by ``step_fn`` and engine/stream.py (round 4)."""
+        + scalars.  Shared by ``step_fn`` and engine/stream.py."""
         from prosper_tpu.core.etstep import truncated_prior_logmass
         sums = jax.tree_util.tree_map(lambda a: maybe_psum(a, axis_name), sums)
         if state_axis is not None and n_state_shards > 1:

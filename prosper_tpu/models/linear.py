@@ -10,7 +10,7 @@ prior parameterisation:
   TSC:  s_h in {-1, 0, +1},  p(s_h=±1) = pi/2                 (scalar pi)
   DSC:  s_h in {0} ∪ Phi,    p(s_h=phi_k) = pi_k              (vector pi)
 
-E-step: one shared TPU-native path (core/etstep.py).  M-steps are closed
+E-step: one shared path for the family (core/etstep.py).  M-steps are closed
 form after a psum of sufficient statistics:
 
   W     <- (sum_n y <s>^T) (sum_n <s s^T>)^-1
@@ -43,31 +43,22 @@ class LinearETModel(ETModel):
     signed_select: bool = False
 
     def __init__(self, D, H, Hprime, gamma, values, to_learn=None, chunk=2048,
-                 min_active: int = 2, backend: str = "xla",
-                 compute_dtype=None, ncut_current: bool = False,
-                 s_block: int = 0):
+                 min_active: int = 2, compute_dtype=None,
+                 ncut_current: bool = False, s_block: int = 0):
         super().__init__(D, H, Hprime, gamma, to_learn, chunk)
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
-        #: 'pallas' switches the E-step to the fused VMEM kernel
-        #: (ops/linear_pallas.py; single-device path only)
-        self.backend = backend
         #: big-S mode: process the enumerated states in s_block-sized tiles
         #: with online-logsumexp accumulation instead of materialising the
-        #: (chunk, S) logits — the fast path when S >~ 10^4 (HBM-bound
-        #: otherwise; see core/etstep.py::_chunk_estats_bigs).  0 = off.
+        #: (chunk, S) logits — meant for S >~ 10^4, where the logits'
+        #: memory traffic dominates (see core/etstep.py::_chunk_estats_bigs).
+        #: 0 = off.
         self.s_block = int(s_block)
         #: reference-parity Ncut semantics: rank the data cut by the CURRENT
         #: iteration's free energies (SURVEY.md §3.1) at the price of a
         #: second E-step pass while the cut is active; the default one-pass
         #: design ranks by the previous iteration's F (documented deviation)
         self.ncut_current = bool(ncut_current)
-        #: e.g. jnp.bfloat16 — throughput mode for the large GEMMs (XLA path)
+        #: e.g. jnp.bfloat16 — operand dtype of the two large GEMMs
         self.compute_dtype = compute_dtype
-        self._pallas_interpret = False   # tests flip this to run on CPU
-        self._pallas_precise = False     # tests: f32 GEMM operands (algebra
-                                         # check at tight tol, vs the bf16
-                                         # production policy)
         self.space = states_mod.discrete_state_space(
             Hprime, gamma, values, min_active=min_active)
         self.sa: LinearStateArrays = state_arrays_from(self.space)
@@ -106,41 +97,12 @@ class LinearETModel(ETModel):
 
         ``params`` must already be noisified; the caller owns the weight
         mask and any cross-device reductions.  Shared by ``step_fn`` and
-        the host->device streaming driver (engine/stream.py, round 4 /
-        VERDICT r3 #7)."""
+        the host->device streaming driver (engine/stream.py)."""
         sigma2 = params["sigma"] ** 2
         sa = self._sa_for(params)
-        # the fused kernel targets production shapes; tiny toy dims (lane
-        # dimensions well under a VREG) fail Mosaic layout, so fall back.
-        # Phi learning needs the extra phi_c/phi_M accumulators -> XLA path.
-        # With s_block set, backend='pallas' selects the big-S flash-style
-        # kernel instead (ops/bigs_pallas.py — VERDICT r2 #5).
-        # (round 3: pallas_bigs composes with state sharding — each shard
-        # runs the fused kernel over its local padded state slice)
-        # Round-5 measurement (BASELINE.md "The Pallas route, taken to its
-        # end"): the XLA merged-GEMM scan now beats the kernel in BOTH
-        # regimes (saturated 0.614 vs 0.649 ms/chunk; annealed 0.78 vs
-        # 0.97) — backend='xla' is the recommended big-S configuration and
-        # 'pallas' stays an explicit opt-in.  The flag deliberately does
-        # NOT route on `saturated`: the engine flips that flag mid-run
-        # when the schedule saturates, and the saturated step must stay
-        # bit-identical to the annealed step at beta == prior_beta == 1
-        # (tests/test_saturated.py) — switching backends there would break
-        # that trajectory contract for roundoff-level gain.
-        use_pallas_bigs = (self.backend == "pallas" and self.s_block > 0
-                           and not self.learn_phi)
-        use_pallas = (self.backend == "pallas" and state_axis is None
-                      and not self.learn_phi and self.s_block == 0
-                      and self.H >= 64 and self.D >= 64)
-        if use_pallas:
-            from prosper_tpu.ops.linear_pallas import linear_et_estep_pallas
-            return linear_et_estep_pallas(
-                y, weight, params["W"], sigma2, self.log_odds(params),
-                sa, self.Hprime, self.signed_select, sched["beta"],
-                sched["prior_beta"], collect_true=not saturated)
-        # big-S tiling composes with state sharding (round 3: the state
-        # slice is tiled in s_block chunks, combined across the axis
-        # with the same online-logsumexp) but not with Phi learning
+        # big-S tiling composes with state sharding (the state slice is
+        # tiled in s_block chunks, combined across the axis with the same
+        # online-logsumexp) but not with Phi learning
         s_block = self.s_block if not self.learn_phi else 0
         return linear_et_estep(
             y, weight, params["W"], sigma2, self.log_odds(params),
@@ -149,10 +111,7 @@ class LinearETModel(ETModel):
             n_state_shards=n_state_shards,
             compute_dtype=self.compute_dtype,
             collect_phi=self.learn_phi, slot_onehot=self._slot_onehot,
-            s_block=s_block, pallas_bigs=use_pallas_bigs,
-            pallas_interpret=self._pallas_interpret,
-            pallas_precise=self._pallas_precise,
-            collect_true=not saturated)
+            s_block=s_block, collect_true=not saturated)
 
     def finalize_mstep(self, params, sums, N_total,
                        axis_name: Optional[str] = None,
@@ -245,13 +204,11 @@ class LinearETModel(ETModel):
         shards the decode over the mesh data axis (data-parallel serving).
         ``dense_states``: True returns the (N, L, H) dense top-state tensor
         (reference-parity output); False returns the compact top-state
-        fields — ~1.9x faster at serving scale (tools/ablate_decode.py),
-        losslessly densifiable via ``core.etstep.densify_top_states``;
-        None (default, round 4 / VERDICT r3 #8) auto-selects: dense for
-        small batches, compact once the dense tensor would exceed
+        fields, losslessly densifiable via
+        ``core.etstep.densify_top_states``; None (default) auto-selects:
+        dense for small batches, compact once the dense tensor would exceed
         ``DENSE_STATES_AUTO_BYTES``."""
-        from prosper_tpu.core.etstep import (linear_et_posterior,
-                                             linear_et_posterior_pallas)
+        from prosper_tpu.core.etstep import linear_et_posterior
         from prosper_tpu.models.base import sched_from_anneal
         sched = sched_from_anneal(anneal) if anneal is not None else None
         beta = sched["beta"] if sched else jnp.float32(1.0)
@@ -259,23 +216,6 @@ class LinearETModel(ETModel):
         y = jnp.asarray(data["y"], jnp.float32)
         dense_states = self.resolve_dense_states(y.shape[0], top_L,
                                                  dense_states)
-        # round 5 (VERDICT r4 #3): with backend='pallas' the decode's q
-        # stage runs in the fused VMEM kernel (the round-3 trace pinned
-        # 10.4 of 12.1 ms/131k on the XLA q stage re-materialising the
-        # union posterior in HBM); same production gates as the train
-        # kernel (tiny toy dims fail Mosaic layout -> XLA fallback)
-        use_pallas = (self.backend == "pallas" and not self.learn_phi
-                      and self.s_block == 0 and self.H >= 64
-                      and self.D >= 64)
-        if use_pallas:
-            return self._cached_infer(
-                ("linear-pl", top_L, dense_states),
-                lambda y_, p, b, pb: linear_et_posterior_pallas(
-                    y_, p["W"], p["sigma"] ** 2, self.log_odds(p),
-                    self._sa_for(p), self.Hprime, self.signed_select,
-                    top_L, b, pb, dense_states=dense_states,
-                    interpret=self._pallas_interpret),
-                y, params, beta, prior_beta, runtime=runtime)
         return self._cached_infer(
             ("linear", top_L, self.chunk, dense_states),
             lambda y_, p, b, pb: linear_et_posterior(
@@ -294,10 +234,10 @@ class BSC(LinearETModel):
     signed_select = False
 
     def __init__(self, D, H, Hprime, gamma, to_learn=None, chunk=2048,
-                 backend: str = "xla", ncut_current: bool = False,
-                 s_block: int = 0, compute_dtype=None):
+                 ncut_current: bool = False, s_block: int = 0,
+                 compute_dtype=None):
         super().__init__(D, H, Hprime, gamma, values=[1.0],
-                         to_learn=to_learn, chunk=chunk, backend=backend,
+                         to_learn=to_learn, chunk=chunk,
                          ncut_current=ncut_current, s_block=s_block,
                          compute_dtype=compute_dtype)
 
@@ -328,10 +268,10 @@ class TSC(LinearETModel):
     signed_select = True
 
     def __init__(self, D, H, Hprime, gamma, to_learn=None, chunk=2048,
-                 backend: str = "xla", ncut_current: bool = False,
-                 s_block: int = 0, compute_dtype=None):
+                 ncut_current: bool = False, s_block: int = 0,
+                 compute_dtype=None):
         super().__init__(D, H, Hprime, gamma, values=[-1.0, 1.0],
-                         to_learn=to_learn, chunk=chunk, backend=backend,
+                         to_learn=to_learn, chunk=chunk,
                          ncut_current=ncut_current, s_block=s_block,
                          compute_dtype=compute_dtype)
 
@@ -377,11 +317,10 @@ class DSC(LinearETModel):
     signed_select = True
 
     def __init__(self, D, H, Hprime, gamma, phi=( -1.0, 1.0, 2.0),
-                 to_learn=None, chunk=2048, backend: str = "xla",
-                 ncut_current: bool = False, s_block: int = 0,
-                 compute_dtype=None):
+                 to_learn=None, chunk=2048, ncut_current: bool = False,
+                 s_block: int = 0, compute_dtype=None):
         super().__init__(D, H, Hprime, gamma, values=list(phi),
-                         to_learn=to_learn, chunk=chunk, backend=backend,
+                         to_learn=to_learn, chunk=chunk,
                          ncut_current=ncut_current, s_block=s_block,
                          compute_dtype=compute_dtype)
         self.phi = np.asarray(phi, np.float64)

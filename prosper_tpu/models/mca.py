@@ -34,24 +34,17 @@ class MCA(ETModel):
     magnitude: bool = False
 
     def __init__(self, D, H, Hprime, gamma, to_learn=None, chunk=2048,
-                 ncut_current: bool = False, backend: str = "xla"):
+                 ncut_current: bool = False):
         # chunk bounds the (chunk, S, D) winner tile; 2048 keeps it tens of
         # MB at bars/patches-like configs while amortising per-chunk
-        # overheads (the old 256 default left 2-3x throughput on the table)
+        # overheads
         super().__init__(D, H, Hprime, gamma, to_learn, chunk)
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
         self.space = states_mod.binary_state_space(Hprime, gamma)
         self.sa = state_arrays_from(self.space)
         #: reference-parity Ncut semantics (same contract as the linear
         #: family): rank the cut by the CURRENT iteration's F via a second
         #: E-step pass while the cut is active
         self.ncut_current = bool(ncut_current)
-        #: "pallas": fused VMEM-resident winner-lattice kernel for the
-        #: hard-winner path (ops/max_pallas.py); the softened-max rho > 0
-        #: window is served by the XLA path behind a lax.cond
-        self.backend = backend
-        self._pallas_interpret = False   # tests flip this to run on CPU
 
     # -- prior helpers --------------------------------------------------------
 
@@ -67,66 +60,20 @@ class MCA(ETModel):
     def estep_sums(self, params, y, weight, sched, saturated: bool = False,
                    state_axis: Optional[str] = None, n_state_shards: int = 1):
         """Family E-step over one device-resident block: (F, local sums).
-        Shared by ``step_fn`` and engine/stream.py (round 4)."""
-        N = y.shape[0]
-        sigma2 = params["sigma"] ** 2
-        # the fused kernel covers the single-device hard-winner path; the
-        # auto-tiler returning 0 means the (S, D, tile) lattice exceeds VMEM
-        # even at the minimum tile, so the XLA formulation stays
-        # (the H/D >= 64 floor mirrors the linear family: tiny toy dims
-        # fail Mosaic layout on chip — interpret-mode tests force past it)
-        use_pallas = (self.backend == "pallas" and state_axis is None
-                      and (self._pallas_interpret
-                           or (self.H >= 64 and self.D >= 64)))
-        use_dtiled = False
-        if use_pallas:
-            from prosper_tpu.core.maxstep import _subset_dp_plan
-            from prosper_tpu.ops.max_pallas import (max_auto_tile,
-                                                    max_dtiled_tiles)
-            S = self.sa.states.shape[0]
-            if max_auto_tile(N, self.D, self.H, self.Hprime, S) <= 0:
-                # the (S, D)-per-lane resident lattice exceeds VMEM (the
-                # patches config D=256) — fall through to the round-4
-                # D-tiled two-pass kernel when ITS working set fits
-                plan = _subset_dp_plan(np.asarray(self.sa.states))
-                level_max = max(len(pp) for pp, _ in plan)
-                use_dtiled = max_dtiled_tiles(
-                    self.D, self.H, self.Hprime, S, level_max) is not None
-                use_pallas = use_dtiled
-
-        def xla():
-            return max_et_estep(
-                y, weight, params["W"], sigma2, self._log_odds(params),
-                self.sa, self.Hprime, self.magnitude, sched["beta"],
-                sched["prior_beta"], self.chunk, rho=sched["rho"],
-                state_axis=state_axis, n_state_shards=n_state_shards,
-                collect_true=not saturated)
-
-        if not use_pallas:
-            return xla()
-
-        def fused():
-            from prosper_tpu.ops.max_pallas import (max_et_estep_pallas,
-                                                    max_et_estep_pallas_dtiled)
-            fn = (max_et_estep_pallas_dtiled if use_dtiled
-                  else max_et_estep_pallas)
-            return fn(
-                y, weight, params["W"], sigma2, self._log_odds(params),
-                self.sa, self.Hprime, self.magnitude, sched["beta"],
-                sched["prior_beta"], interpret=self._pallas_interpret,
-                collect_true=not saturated)
-
-        # rho is a traced annealing scalar, so the dispatch is a runtime
-        # cond: the softened-max window (rho > 0) runs the XLA branch,
-        # the hard-winner steady state runs the fused kernel
-        return jax.lax.cond(sched["rho"] > 0, xla, fused)
+        Shared by ``step_fn`` and engine/stream.py."""
+        return max_et_estep(
+            y, weight, params["W"], params["sigma"] ** 2,
+            self._log_odds(params), self.sa, self.Hprime, self.magnitude,
+            sched["beta"], sched["prior_beta"], self.chunk, rho=sched["rho"],
+            state_axis=state_axis, n_state_shards=n_state_shards,
+            collect_true=not saturated)
 
     def finalize_mstep(self, params, sums, N_total,
                        axis_name: Optional[str] = None,
                        state_axis: Optional[str] = None,
                        n_state_shards: int = 1):
         """Mesh reduction + winner-responsibility M-step + scalars.
-        Shared by ``step_fn`` and engine/stream.py (round 4)."""
+        Shared by ``step_fn`` and engine/stream.py."""
         from prosper_tpu.core.etstep import truncated_prior_logmass
         sums = jax.tree_util.tree_map(lambda a: maybe_psum(a, axis_name), sums)
         if state_axis is not None and n_state_shards > 1:

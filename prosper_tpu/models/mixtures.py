@@ -7,7 +7,7 @@ the step function has the same (params, data, sched, rng) -> (params, F,
 scalars) contract as the ET models, so ``EM``, ``MeshRuntime`` and the
 DataLog all apply unchanged.
 
-TPU notes: responsibilities are one (N, K) softmax — a single fused
+Responsibilities are one (N, K) softmax — a single fused
 elementwise+reduce block after a (N,D)x(D,K)-shaped distance computation;
 suff stats are two GEMMs, psum'd over the data axis.
 """

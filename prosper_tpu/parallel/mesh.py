@@ -1,19 +1,19 @@
-"""Device-mesh runtime: the TPU-native replacement of the reference's MPI layer.
+"""Device-mesh runtime: the replacement of the reference's MPI layer.
 
 Reference behavior: SURVEY.md §2 "MPI helpers" — ``prosper/utils/parallel.py``
 provides ``pprint`` (rank-0 print), ``stride_data`` (per-rank shard bounds)
 and allreduce wrappers over ``mpi4py``; each model's M-step allreduces summed
 sufficient statistics (SURVEY.md §3.1).
 
-TPU-native design: one mesh axis ``'data'`` spans every chip (ICI within a
-slice, DCN across slices — XLA picks the collective algorithm).  The EM step
+Design: one mesh axis ``'data'`` spans every device (XLA picks the
+collective algorithm; on GPUs it hands collectives to NCCL).  The EM step
 runs under ``shard_map`` with the data shard partitioned over 'data' and the
 parameters replicated; sufficient statistics are ``lax.psum``'d, after which
 every device computes the identical closed-form M-step (SPMD determinism, the
 same property the reference relies on).
 
 Everything here also works with no mesh at all (axis_name=None): the
-``maybe_*`` collectives become identity, so a single-chip run pays zero
+``maybe_*`` collectives become identity, so a single-device run pays zero
 overhead and model code is written once.
 """
 
@@ -75,8 +75,8 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    process_id: Optional[int] = None) -> None:
     """Initialise JAX multi-host (the ``mpirun -n P`` analogue).
 
-    Thin wrapper over ``jax.distributed.initialize`` — on cloud TPU pods
-    all arguments are auto-detected; on other clusters pass them
+    Thin wrapper over ``jax.distributed.initialize`` — on managed
+    clusters the arguments may be auto-detected; elsewhere pass them
     explicitly.  MUST be called before anything touches a JAX backend
     (importantly: before ``jax.devices()`` / ``jax.process_count()`` /
     any jnp op — initialising a backend first makes distributed setup
@@ -214,7 +214,7 @@ class MeshRuntime:
         state size > 1), the enumerated-state dimension of supporting models
         is additionally sharded over 'state' — SURVEY.md §5.7's
         sequence-parallel analogue (ring-attention-style online-logsumexp
-        combine over ICI).
+        combine).
         """
         import inspect
         axis = self.data_axis

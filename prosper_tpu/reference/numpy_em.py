@@ -128,7 +128,7 @@ def numpy_em_run(model: NumpyBSC, y: np.ndarray, anneal, params: Dict,
 
     Returns {'params', 'F_true_trajectory'} where the trajectory is the
     un-annealed per-datapoint-mean truncated log-likelihood per iteration
-    (comparable to the TPU build's ``Q_mean`` channel).
+    (comparable to the jitted driver's ``Q_mean`` channel).
     """
     rng = np.random.default_rng(seed)
     params = {k: np.array(v, np.float64) for k, v in params.items()}
@@ -142,7 +142,7 @@ def numpy_em_run(model: NumpyBSC, y: np.ndarray, anneal, params: Dict,
         prior_beta = beta if s.get("anneal_prior") else 1.0
         _, sums = model.e_step(p, y, beta=beta, prior_beta=prior_beta)
         # un-annealed free energy at the (noisified) pre-update params —
-        # matches when the TPU build logs its Q_mean channel
+        # matches when the jitted driver logs its Q_mean channel
         F_true, _ = model.e_step(p, y, beta=1.0, prior_beta=1.0)
         traj.append(float(F_true.mean()))
         params = model.m_step(p, sums)

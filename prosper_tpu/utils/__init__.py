@@ -3,11 +3,52 @@
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import jax
+
+#: the checkout (or install prefix) this package was loaded from
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; return its directory.
+
+    The one rule every entry point applies: when ``JAX_COMPILATION_CACHE_DIR``
+    is set, JAX reads it and no other directory is set here.  Otherwise the
+    cache lives in ``.jax_cache`` at the root of the checkout (listed in
+    ``.gitignore``) — a fixed path, because the path is part of the cache's
+    key and a directory that moves never hits.  Call before the first
+    compilation."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(_ROOT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
+def gpu_device_info() -> Dict:
+    """The GPU this process measures on: JAX's ``platform``, ``kind`` and
+    ``count``, and each card's name and power limit as ``nvidia-smi``
+    reports them (``cards``).  Raises RuntimeError when JAX's default
+    backend is not a GPU — a measurement never falls back to the CPU."""
+    dev = jax.devices()
+    if dev[0].platform != "gpu":
+        raise RuntimeError(
+            f"no GPU: JAX's default backend is {dev[0].platform!r}; this "
+            "measurement runs only on a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return {"platform": dev[0].platform, "kind": dev[0].device_kind,
+            "count": len(dev),
+            "cards": [ln.strip() for ln in smi.stdout.splitlines()
+                      if ln.strip()]}
 
 
 def create_output_path(basename: Optional[str] = None,

@@ -6,7 +6,7 @@ E-step and closed-form M-step, structured like the reference's NumPy path
 reconstruction ybar = W_cand @ s per enumerated state, explicit union
 {zero} ∪ {singletons x values over ALL H} ∪ {multi states over candidates}.
 
-The production TPU path (prosper_tpu/core/etstep.py) must reproduce these
+The production path (prosper_tpu/core/etstep.py) must reproduce these
 numbers to float32 tolerance — SURVEY.md §4's "pure-NumPy oracle vs jitted"
 test strategy.
 """
@@ -104,8 +104,10 @@ def linear_oracle_estep(y, W, sigma, pi_vec, values, Hp, gamma,
         # value-set (Phi) learning stats: b_k = indicator of value k per unit
         bk = ((states[:, :, None] == values[None, None, :])
               & (states[:, :, None] != 0)).astype(np.float64)  # (T, H, K)
-        sums["phi_c"] += w * np.einsum("t,thk,h->k", q, bk, W.T @ y[n])
-        sums["phi_M"] += w * np.einsum("t,thk,hg,tgj->kj", q, bk, gram, bk)
+        sums["phi_c"] += w * np.einsum("t,thk,h->k", q, bk, W.T @ y[n],
+                                       optimize=True)
+        sums["phi_M"] += w * np.einsum("t,thk,hg,tgj->kj", q, bk, gram, bk,
+                                       optimize=True)
     return F_out, sums
 
 

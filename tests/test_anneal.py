@@ -31,7 +31,7 @@ def test_absolute_positions():
 
 
 def test_mixed_fractional_and_absolute_positions():
-    """ADVICE r1 (medium): mixing fraction and absolute breakpoints must
+    """Mixing fraction and absolute breakpoints must
     interpolate over ITERATION-space order, not raw-spec order."""
     a = LinearAnnealing(100)
     # raw-spec order [(0.9, 5.0), (5, 1.0)] but iteration order is

@@ -1,6 +1,6 @@
-"""Co-activation-guided blend splitting (VERDICT r1 weak item #6).
+"""Co-activation-guided blend splitting.
 
-ROUND1.md diagnosis: the stable patches-scale failures are *blends* — one
+Diagnosis: the stable patches-scale failures are *blends* — one
 learned column fuses two planted atoms (w_b ~= a1 + a2, near-disjoint
 supports).  ``coactivation_split`` reads the partition off the data: among
 datapoints correlated with w_b, a1's pixels co-vary together and
@@ -94,7 +94,7 @@ def test_em_blend_split_end_to_end():
 
 def test_split_coact_alone_defaults_pool_threshold():
     """split_coact=True without split_norm_frac must not be a silent no-op
-    (review r2): the calibrated support-factor default kicks in."""
+   : the calibrated support-factor default kicks in."""
     model = BSC(16, 8, 5, 3)
     gt = bars_gt_params(model, intensity=10.0, sigma=1.0)
     data = model.generate_data(gt, 200, seed=1)

@@ -187,7 +187,7 @@ def test_cli_diagnose_json(tiny_config, tmp_path, capsys):
 
 
 def test_cli_train_stream(tiny_config, tmp_path):
-    """--stream SEG routes training through engine/stream.py (round 4):
+    """--stream SEG routes training through engine/stream.py:
     logs/checkpoint written, Q improves, and --mesh/--resume are rejected."""
     out = str(tmp_path / "runs")
     rc = cli.main(["train", tiny_config, "-o", out, "-q", "--stream", "100"])

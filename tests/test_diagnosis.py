@@ -97,7 +97,7 @@ def test_diagnose_real_patches_dictionary():
 
 
 def test_split_blend_sweep_synthetic():
-    """Round 4 (VERDICT r3 #5): the offline sweep splits a planted blend
+    """The offline sweep splits a planted blend
     into (blend col, donor col) using a junk column as the donor, without
     touching the healthy single-atom columns."""
     from prosper_tpu.data.diagnosis import split_blend_sweep
@@ -133,7 +133,7 @@ def test_split_blend_sweep_synthetic():
 
 
 def test_split_blend_sweep_relaxed_donor():
-    """Round 5 (taxonomy classes "missing-no-donor"/"blend-no-donor"):
+    """Taxonomy classes "missing-no-donor"/"blend-no-donor":
     with the primary donor pool empty, the weaker member of a RELAXED
     duplicate pair (coherence 0.65-0.85, chosen by wider support — the
     blend-like member) is donated instead of split, and a genuine blend

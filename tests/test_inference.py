@@ -135,7 +135,7 @@ def test_inference_dsc_three_values():
 
 
 def test_infer_cache_is_per_instance_and_reused():
-    """VERDICT r1 weak item #8: the jitted-decoder cache keys on
+    """The jitted-decoder cache keys on
     (family, top_L, chunk) but lives on the model INSTANCE, so two models
     sharing a family key cannot collide; repeated serves reuse one
     compiled decoder per (top_L, chunk)."""
@@ -163,7 +163,7 @@ def test_infer_cache_is_per_instance_and_reused():
 
 
 def test_inference_sharded_over_mesh_matches_single_device():
-    """Data-parallel serving (round 2): model.inference(..., runtime=rt)
+    """Data-parallel serving: model.inference(..., runtime=rt)
     shard_maps the decode over the mesh data axis; outputs must match the
     single-device decode exactly."""
     import jax
@@ -189,7 +189,7 @@ def test_inference_sharded_over_mesh_matches_single_device():
 
 
 def test_dense_states_auto_by_output_size():
-    """Round 4 (VERDICT r3 #8): dense_states=None (the new default)
+    """Dense_states=None (the new default)
     auto-selects — dense (N, L, H) output for small batches, compact
     fields once the dense tensor would exceed DENSE_STATES_AUTO_BYTES.
     Explicit True/False still force either layout."""
@@ -252,3 +252,68 @@ def test_compact_decode_densifies_to_dense(family):
     np.testing.assert_allclose(np.asarray(ts),
                                np.asarray(dense["top_states"]),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("values,signed", [((1.0,), False),
+                                           ((-1.0, 1.0), True)])
+@pytest.mark.parametrize("dense", [True, False])
+def test_decode_matches_oracle(values, signed, dense):
+    """linear_et_posterior (chunked, N not a multiple of the chunk) against
+    the float64 oracle per datapoint: F and the posterior mean, in both
+    output layouts; compact top states densify to the dense ones."""
+    _check_decode_against_oracle(values, signed, dense, beta=1.0,
+                                 prior_beta=1.0)
+
+
+def test_decode_annealed_matches_oracle():
+    """beta/prior_beta != 1 flow through the decode's logits."""
+    _check_decode_against_oracle((1.0,), False, False, beta=0.5,
+                                 prior_beta=0.7)
+
+
+def _check_decode_against_oracle(values, signed, dense, beta, prior_beta):
+    import jax.numpy as jnp
+    from prosper_tpu.core.etstep import (densify_top_states,
+                                         linear_et_posterior,
+                                         state_arrays_from)
+    from prosper_tpu.core.select import top_hprime_candidates
+    from prosper_tpu.core.states import discrete_state_space
+    from tests.oracle import linear_oracle_estep
+
+    N, D, H, Hp, gamma = 37, 12, 11, 5, 3
+    rng = np.random.default_rng(0)
+    y = rng.standard_normal((N, D)).astype(np.float32)
+    W = rng.standard_normal((D, H)).astype(np.float32)
+    K = len(values)
+    pi_vec = np.full(K, 0.4 / (H * K))
+    sa = state_arrays_from(discrete_state_space(Hp, gamma, list(values)))
+    log_odds = jnp.asarray(np.log(pi_vec) - np.log1p(-pi_vec.sum()),
+                           jnp.float32)
+    kw = dict(sigma2=jnp.float32(0.8 ** 2), log_odds=log_odds, sa=sa, Hp=Hp,
+              signed_select=signed, top_L=7, beta=jnp.float32(beta),
+              prior_beta=jnp.float32(prior_beta))
+    out = linear_et_posterior(jnp.asarray(y), jnp.asarray(W), chunk=16,
+                              dense_states=dense, **kw)
+    if not dense:
+        ref = linear_et_posterior(jnp.asarray(y), jnp.asarray(W), chunk=16,
+                                  dense_states=True, **kw)
+        np.testing.assert_array_equal(
+            np.asarray(densify_top_states(out, H)),
+            np.asarray(ref["top_states"]))
+    P = jnp.dot(jnp.asarray(y), jnp.asarray(W))
+    cand = np.asarray(top_hprime_candidates(
+        P, jnp.linalg.norm(jnp.asarray(W), axis=0), Hp, signed))
+    F_o, s_o = [], []
+    for n in range(N):
+        F_n, sums_n = linear_oracle_estep(
+            y[n:n + 1], W, 0.8, pi_vec, list(values), Hp, gamma, beta=beta,
+            prior_beta=prior_beta, candidates=cand[n:n + 1])
+        F_o.append(F_n[0])
+        s_o.append(sums_n["s"])
+    np.testing.assert_allclose(np.asarray(out["F"]), F_o, rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(np.asarray(out["s_mean"]), np.array(s_o),
+                               rtol=1e-4, atol=1e-5)
+    probs = np.asarray(out["top_probs"])
+    assert np.all(np.diff(probs, axis=1) <= 1e-7)
+    assert np.all(probs.sum(axis=1) <= 1.0 + 1e-5)

@@ -1,4 +1,4 @@
-"""Jitted TPU-native E/M-step vs float64 NumPy oracle (SURVEY.md §4 item 1)."""
+"""Jitted E/M-step vs float64 NumPy oracle (SURVEY.md §4 item 1)."""
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +28,7 @@ CASES = [
     ("bsc", [1.0], lambda pi: [pi], False),
     ("tsc", [-1.0, 1.0], lambda pi: [pi / 2, pi / 2], True),
     ("dsc", [-1.0, 1.0, 2.0], lambda pi: [pi / 3] * 3, True),
+    ("dsc_pos", [0.5, 1.0, 2.0], lambda pi: [pi / 3] * 3, False),
 ]
 
 
@@ -222,7 +223,7 @@ def test_sblock_rejects_phi_learning_combo():
 
 
 def test_sblock_prior_beta_zero_matches_standard():
-    """ADVICE r2 (medium) regression: at prior_beta=0 the big-S path's
+    """At prior_beta=0 the big-S path's
     padded states used to enter the softmax with logit 0 (the padding mask
     was encoded as prior=neg, which prior_beta=0 wiped out), corrupting F
     and every sufficient statistic.  The explicit validity mask must make
@@ -251,7 +252,7 @@ def test_sblock_prior_beta_zero_matches_standard():
 
 
 def test_sblock_compute_dtype_runs():
-    """ADVICE r2 (low) regression: compute_dtype threads through the
+    """Compute_dtype threads through the
     s_block path (previously silently dropped)."""
     from prosper_tpu.models.linear import TSC
 
@@ -265,3 +266,141 @@ def test_sblock_compute_dtype_runs():
     sched = sched_from_anneal(LinearAnnealing(5))
     p, F, s = m.jit_step()(params, data, sched, jax.random.PRNGKey(0))
     assert np.isfinite(float(s["F_mean"]))
+
+
+# ---- case grids on the XLA path: value sets, padding, zero-weight tiles,
+# annealed (beta, prior_beta), the s_block scan under saturation ----------
+
+def _oracle_problem(values, N, seed=0, D=16, H=12, Hp=6, gamma=3,
+                    weight=None):
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((N, D)) * 1.5).astype(np.float32)
+    W = rng.standard_normal((D, H)).astype(np.float32)
+    if weight is None:
+        weight = (rng.random(N) > 0.2).astype(np.float32)
+    K = len(values)
+    pi_vec = np.full(K, 0.2 / K)
+    sa = state_arrays_from(discrete_state_space(Hp, gamma, list(values)))
+    log_odds = jnp.asarray(np.log(pi_vec) - np.log(1 - pi_vec.sum()),
+                           jnp.float32)
+    return y, W, np.asarray(weight, np.float32), pi_vec, sa, log_odds
+
+
+def _device_candidates(y, W, Hp, signed):
+    from prosper_tpu.core.select import top_hprime_candidates
+    P = jnp.dot(jnp.asarray(y), jnp.asarray(W))
+    return np.asarray(top_hprime_candidates(
+        P, jnp.linalg.norm(jnp.asarray(W), axis=0), Hp, signed))
+
+
+def _assert_sums_match(F, sums, F_o, sums_o, keys, rtol=3e-3, atol=3e-3):
+    np.testing.assert_allclose(np.asarray(F), F_o, rtol=2e-4, atol=2e-4)
+    for k in keys:
+        np.testing.assert_allclose(np.asarray(sums[k]), sums_o[k],
+                                   rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("values,signed", [([1.0], False),
+                                           ([-1.0, 1.0], True),
+                                           ([0.5, 1.0, 2.0], False)])
+@pytest.mark.parametrize("N", [33, 57, 100])
+def test_padded_weighted_estep_matches_oracle(values, signed, N):
+    """Any N works: the shard pads to the chunk with weight-0 rows, which
+    contribute nothing; weighted rows match the oracle's weighted sums."""
+    Hp, gamma, chunk = 6, 3, 32
+    y, W, w, pi_vec, sa, lo = _oracle_problem(values, N, seed=N)
+    n_pad = -(-N // chunk) * chunk
+    y_p = np.pad(y, ((0, n_pad - N), (0, 0)))
+    w_p = np.pad(w, (0, n_pad - N))
+    F, sums = jax.jit(lambda: linear_et_estep(
+        jnp.asarray(y_p), jnp.asarray(w_p), jnp.asarray(W),
+        jnp.float32(1.3 ** 2), lo, sa, Hp, signed, jnp.float32(0.7),
+        jnp.float32(1.0), chunk=chunk))()
+    cand = _device_candidates(y, W, Hp, signed)
+    F_o, sums_o = linear_oracle_estep(y, W, 1.3, pi_vec, values, Hp, gamma,
+                                      beta=0.7, signed_select=signed,
+                                      weight=w, candidates=cand)
+    assert F.shape == (n_pad,)
+    _assert_sums_match(F[:N], sums, F_o, sums_o,
+                       ("xs", "ss", "s", "abs", "vc", "y2", "n", "F"))
+
+
+@pytest.mark.parametrize("values,signed", [([1.0], False),
+                                           ([-1.0, 1.0], True)])
+@pytest.mark.parametrize("masked", ["second_tile", "everything"])
+def test_zero_weight_tiles_contribute_nothing(values, signed, masked):
+    """A chunk whose rows all carry weight 0 (Ncut masked it) adds exactly
+    nothing; with every weight 0 every sum is zero."""
+    N, Hp, gamma = 64, 6, 3
+    w = np.ones(N, np.float32)
+    if masked == "second_tile":
+        w[32:] = 0.0
+    else:
+        w[:] = 0.0
+    y, W, w, pi_vec, sa, lo = _oracle_problem(values, N, seed=5, weight=w)
+    F, sums = jax.jit(lambda: linear_et_estep(
+        jnp.asarray(y), jnp.asarray(w), jnp.asarray(W), jnp.float32(1.69),
+        lo, sa, Hp, signed, jnp.float32(1.0), jnp.float32(1.0),
+        chunk=32))()
+    if masked == "everything":
+        for k, v in sums.items():
+            np.testing.assert_allclose(np.asarray(v), 0.0, atol=1e-6,
+                                       err_msg=k)
+        assert np.all(np.isfinite(np.asarray(F)))
+        return
+    cand = _device_candidates(y, W, Hp, signed)
+    F_o, sums_o = linear_oracle_estep(y, W, 1.3, pi_vec, values, Hp, gamma,
+                                      signed_select=signed, weight=w,
+                                      candidates=cand)
+    _assert_sums_match(F, sums, F_o, sums_o,
+                       ("xs", "ss", "s", "abs", "vc", "y2", "n", "F"))
+
+
+@pytest.mark.parametrize("beta,prior_beta", [(1.0, 1.0), (0.6, 1.0),
+                                             (0.8, 0.8)])
+@pytest.mark.parametrize("values", [(1.0,), (-1.0, 1.0)])
+def test_sblock_estep_matches_oracle(beta, prior_beta, values):
+    """The big-S s_block scan (state padding: s_block does not divide S)
+    reproduces the float64 oracle, annealed schedules included."""
+    D, H, Hp, gamma, N = 16, 24, 6, 4, 48
+    signed = len(values) > 1
+    y, W, w, pi_vec, sa, lo = _oracle_problem(values, N, seed=3, D=D, H=H,
+                                              Hp=Hp, gamma=gamma)
+    assert sa.states.shape[0] % 16 != 0
+    F, sums = jax.jit(lambda: linear_et_estep(
+        jnp.asarray(y), jnp.asarray(w), jnp.asarray(W), jnp.float32(1.44),
+        lo, sa, Hp, signed, jnp.float32(beta), jnp.float32(prior_beta),
+        chunk=N, s_block=16))()
+    cand = _device_candidates(y, W, Hp, signed)
+    F_o, sums_o = linear_oracle_estep(y, W, 1.2, pi_vec, list(values), Hp,
+                                      gamma, beta=beta, prior_beta=prior_beta,
+                                      signed_select=signed, weight=w,
+                                      candidates=cand)
+    _assert_sums_match(F, sums, F_o, sums_o,
+                       ("xs", "ss", "s", "abs", "vc", "y2", "n", "F"))
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+def test_sblock_model_step_matches_standard_with_padding_rows(saturated):
+    """TSC with s_block through jit_step matches the standard step, with
+    zero-weight rows, in both step specializations (saturated drops the
+    un-annealed channel)."""
+    D, H, Hp, gamma, N = 16, 20, 6, 4, 96
+    y = np.random.default_rng(7).standard_normal((N, D)).astype(np.float32)
+    outs = []
+    for s_block in (0, 16):
+        m = TSC(D, H, Hp, gamma, chunk=N, s_block=s_block)
+        params = m.standard_init({"y": y}, seed=5)
+        from prosper_tpu.engine.anneal import LinearAnnealing
+        from prosper_tpu.models.base import make_blank_data, sched_from_anneal
+        data = make_blank_data(y, valid=np.r_[np.ones(80), np.zeros(16)])
+        sched = sched_from_anneal(LinearAnnealing(10))
+        p, F, s = m.jit_step(saturated=saturated)(params, data, sched,
+                                                  jax.random.PRNGKey(0))
+        outs.append((p, np.asarray(F), float(s["F_mean"])))
+    for k in outs[0][0]:
+        np.testing.assert_allclose(np.asarray(outs[0][0][k]),
+                                   np.asarray(outs[1][0][k]), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=2e-5, atol=1e-4)
+    np.testing.assert_allclose(outs[0][2], outs[1][2], rtol=1e-5)

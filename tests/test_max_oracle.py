@@ -244,3 +244,142 @@ def test_mca_beats_linear_on_occlusion_data():
     rec_mca, rec_bsc = main(N=2048, iters=50)
     assert rec_mca >= 7
     assert rec_mca > rec_bsc
+
+
+# ---- case grids on the XLA path: annealed (beta, prior_beta) with H' < H,
+# padding rows, zero-weight chunks, the saturated channel, the M-step -----
+
+def _max_problem(D, H, N, seed, magnitude):
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((D, H)).astype(np.float32)
+    if not magnitude:
+        W = np.abs(W)          # MCA is a non-negative-dictionary model
+    y = (rng.standard_normal((N, D)) * 2.0).astype(np.float32)
+    return y, W
+
+
+def _max_candidates(y, W, Hp, magnitude):
+    from prosper_tpu.core.select import top_hprime_candidates
+    P = jnp.dot(jnp.asarray(y), jnp.asarray(W))
+    return np.asarray(top_hprime_candidates(
+        P, jnp.linalg.norm(jnp.asarray(W), axis=0), Hp, magnitude))
+
+
+def _weighted_oracle(y, W, sigma, pi, Hp, gamma, magnitude, cand, w,
+                     **kw):
+    """max_oracle over the rows with weight 1 (weights here are 0/1)."""
+    keep = w > 0
+    F_all, _ = max_oracle(y, W, sigma, pi, Hp, gamma, magnitude, cand, **kw)
+    _, sums = max_oracle(y[keep], W, sigma, pi, Hp, gamma, magnitude,
+                         cand[keep], **kw)
+    return F_all, sums
+
+
+@pytest.mark.parametrize("magnitude", [False, True])
+@pytest.mark.parametrize("beta,prior_beta", [(1.0, 1.0), (0.5, 1.0),
+                                             (0.7, 0.7)])
+def test_max_estep_annealed_subset_candidates_matches_oracle(
+        magnitude, beta, prior_beta):
+    D, H, Hp, gamma, N = 12, 16, 5, 3, 24
+    y, W = _max_problem(D, H, N, 3, magnitude)
+    w = (np.random.default_rng(4).random(N) < 0.8).astype(np.float32)
+    sigma, pi = 1.1, 0.15
+    sa = state_arrays_from(binary_state_space(Hp, gamma))
+    F, sums = jax.jit(lambda: max_et_estep(
+        jnp.asarray(y), jnp.asarray(w), jnp.asarray(W),
+        jnp.float32(sigma ** 2), jnp.float32(np.log(pi / (1 - pi))), sa, Hp,
+        magnitude, jnp.float32(beta), jnp.float32(prior_beta), chunk=N))()
+    cand = _max_candidates(y, W, Hp, magnitude)
+    F_o, sums_o = _weighted_oracle(y, W, sigma, pi, Hp, gamma, magnitude,
+                                   cand, w, beta=beta, prior_beta=prior_beta)
+    np.testing.assert_allclose(np.asarray(F), F_o, rtol=3e-4, atol=3e-4)
+    for key in ("numer", "denom", "s", "abs", "resid", "y2", "n", "F"):
+        np.testing.assert_allclose(np.asarray(sums[key]), sums_o[key],
+                                   rtol=3e-3, atol=3e-3, err_msg=key)
+
+
+@pytest.mark.parametrize("magnitude", [False, True])
+@pytest.mark.parametrize("masked", ["padding_rows", "zero_weight_chunk"])
+def test_max_estep_weight_zero_rows_match_oracle(magnitude, masked):
+    """N=20 padded to two chunks of 16 with weight-0 rows, or a whole
+    chunk of weight 0: those rows contribute nothing to any sum."""
+    D, H, Hp, gamma, chunk = 10, 12, 4, 3, 16
+    N = 20 if masked == "padding_rows" else 32
+    y, W = _max_problem(D, H, N, 9, magnitude)
+    w = np.ones(N, np.float32)
+    if masked == "zero_weight_chunk":
+        w[16:] = 0.0
+    n_pad = -(-N // chunk) * chunk
+    y_p = np.pad(y, ((0, n_pad - N), (0, 0)))
+    w_p = np.pad(w, (0, n_pad - N))
+    sigma, pi = 0.9, 0.2
+    sa = state_arrays_from(binary_state_space(Hp, gamma))
+    F, sums = jax.jit(lambda: max_et_estep(
+        jnp.asarray(y_p), jnp.asarray(w_p), jnp.asarray(W),
+        jnp.float32(sigma ** 2), jnp.float32(np.log(pi / (1 - pi))), sa, Hp,
+        magnitude, jnp.float32(1.0), jnp.float32(1.0), chunk=chunk))()
+    assert F.shape == (n_pad,)
+    assert np.all(np.isfinite(np.asarray(F)))
+    cand = _max_candidates(y, W, Hp, magnitude)
+    F_o, sums_o = _weighted_oracle(y, W, sigma, pi, Hp, gamma, magnitude,
+                                   cand, w)
+    np.testing.assert_allclose(np.asarray(F)[:N], F_o, rtol=3e-4, atol=3e-4)
+    for key in ("numer", "denom", "s", "abs", "resid", "y2", "n", "F"):
+        np.testing.assert_allclose(np.asarray(sums[key]), sums_o[key],
+                                   rtol=3e-3, atol=3e-3, err_msg=key)
+
+
+@pytest.mark.parametrize("magnitude", [False, True])
+def test_max_estep_saturated_skips_true_channel(magnitude):
+    """collect_true=False: F_true equals F exactly (the static drop) and
+    every other sum is unchanged."""
+    D, H, Hp, gamma, N = 16, 16, 4, 3, 64
+    y, W = _max_problem(D, H, N, 19, magnitude)
+    sa = state_arrays_from(binary_state_space(Hp, gamma))
+    args = (jnp.asarray(y), jnp.ones((N,), jnp.float32), jnp.asarray(W),
+            jnp.float32(1.0), jnp.float32(np.log(0.2 / 0.8)), sa, Hp,
+            magnitude, jnp.float32(1.0), jnp.float32(1.0))
+    F1, s1 = jax.jit(lambda: max_et_estep(*args, chunk=32))()
+    F2, s2 = jax.jit(lambda: max_et_estep(*args, chunk=32,
+                                          collect_true=False))()
+    assert float(s2["F"]) == float(s2["F_true"])
+    np.testing.assert_allclose(float(s1["F_true"]), float(s2["F_true"]),
+                               rtol=1e-5)
+    for k in s1:
+        np.testing.assert_allclose(np.asarray(s1[k]), np.asarray(s2[k]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    np.testing.assert_array_equal(np.asarray(F1), np.asarray(F2))
+
+
+@pytest.mark.parametrize("cls", [MCA, MMCA])
+def test_max_mstep_matches_oracle(cls):
+    """finalize_mstep on the oracle's sums: W = numer/denom where a cause
+    wins anywhere (else unchanged), the ET-corrected pi, the residual
+    sigma."""
+    from math import comb
+    D, H, Hp, gamma, N = 9, 6, 6, 3, 12
+    magnitude = cls is MMCA
+    y, W = _max_problem(D, H, N, 21, magnitude)
+    sigma, pi = 0.9, 0.2
+    cand = np.tile(np.arange(H), (N, 1))
+    _, sums_o = max_oracle(y, W, sigma, pi, Hp, gamma, magnitude, cand)
+    model = cls(D, H, Hp, gamma)
+    params = {"W": jnp.asarray(W), "pi": jnp.float32(pi),
+              "sigma": jnp.float32(sigma)}
+    sums = {k: jnp.asarray(np.asarray(v), jnp.float32)
+            for k, v in sums_o.items()}
+    sums["F_true"] = sums["F"]
+    new, _ = model.finalize_mstep(params, sums, jnp.float32(N))
+    denom = sums_o["denom"]
+    W_o = np.where(denom > 1e-6, sums_o["numer"] / np.maximum(denom, 1e-6),
+                   W.T).T
+    A = sum(comb(H, k) * pi ** k * (1 - pi) ** (H - k)
+            for k in range(gamma + 1))
+    B = sum(k * comb(H, k) * pi ** k * (1 - pi) ** (H - k)
+            for k in range(gamma + 1))
+    pi_o = pi * (A / B) * sums_o["abs"] / sums_o["n"]
+    sigma_o = np.sqrt(sums_o["resid"] / (sums_o["n"] * D))
+    np.testing.assert_allclose(np.asarray(new["W"]), W_o, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(new["pi"]), pi_o, rtol=1e-4)
+    np.testing.assert_allclose(float(new["sigma"]), sigma_o, rtol=1e-5)

@@ -1,7 +1,7 @@
-"""Same-iteration Ncut semantics (VERDICT r1 missing item #4).
+"""Same-iteration Ncut semantics.
 
 Reference behavior: SURVEY.md §3.1 — ``select_partial_data`` ranks the ET
-data cut by the free energies of the *current* iteration.  The TPU build's
+data cut by the free energies of the *current* iteration.  This build's
 default is a documented one-iteration-lag deviation; ``ncut_current=True``
 restores reference semantics with a second E-step pass while the cut is
 active.  The defining property tested here: a ``ncut_current`` step from
@@ -80,7 +80,7 @@ def test_ncut_current_bars_recovery():
 
 
 def test_ncut_current_max_and_gsc_families():
-    """Round 2: the same defining property holds for MCA and GSC (the
+    """The same defining property holds for MCA and GSC (the
     deviation's 'GSC/MCA/MMCA keep the lagged default' carve-out closed —
     ncut_current is now a per-model option for every ET family)."""
     from prosper_tpu.models.gsc import GSC

@@ -1,8 +1,7 @@
-"""Unit tests for the per-slot candidate/scatter helpers (round 4).
+"""Unit tests for the per-slot candidate/scatter helpers.
 
 These replace the stacked (C,Hp,H) one-hot + batched T/G/T2 einsums across
-the XLA E-steps and decoders (layout-copy elimination, BASELINE.md "Layout
-copies"); the tests pin their algebra against the direct dense formulation
+the XLA E-steps and decoders; the tests pin their algebra against the direct dense formulation
 so the end-to-end oracle tests can't silently drift onto a different code
 path.
 """

@@ -1,4 +1,4 @@
-"""DSC value-set (Phi) learning — oracle + integration (VERDICT r1 #7).
+"""DSC value-set (Phi) learning — oracle + integration.
 
 SURVEY.md §2 "DSC-ET": latents from a finite value set Phi, "optionally
 learned".  The closed-form update solves M phi = c from the phi_c/phi_M

@@ -1,10 +1,10 @@
-"""CPU-reference trajectory comparison harness (BASELINE.md north star).
+"""CPU-reference trajectory comparison harness (the reference-parity goal).
 
-The TPU build must match the reference's free-energy trajectories "within
+The jitted build must match the reference's free-energy trajectories "within
 Monte-Carlo/seed error".  NumPy RandomState and JAX PRNG cannot match
 bitwise (SURVEY.md §7 hard parts), so the comparison is distributional:
 run the float64 NumPy reference-equivalent (prosper_tpu.reference) over
-several seeds, run the TPU build over several seeds, and require the final
+several seeds, run the jitted build over several seeds, and require the final
 free energies to come from overlapping distributions and the trajectories
 to track within the seed spread.
 """
@@ -36,7 +36,7 @@ def problem():
 
 
 def test_single_estep_mstep_parity(problem):
-    """One EM step from identical params: NumPy f64 vs TPU f32 paths must
+    """One EM step from identical params: NumPy f64 vs jitted f32 paths must
     agree to float32 tolerance (not just distributionally)."""
     import jax
     from prosper_tpu.models.base import make_blank_data, sched_from_anneal
@@ -49,17 +49,17 @@ def test_single_estep_mstep_parity(problem):
     p_ref = ref.m_step(p64, sums)
 
     sched = sched_from_anneal(LinearAnnealing(10))
-    p_tpu, _, _ = model.jit_step()(params, make_blank_data(data["y"]), sched,
+    p_jax, _, _ = model.jit_step()(params, make_blank_data(data["y"]), sched,
                                    jax.random.PRNGKey(0))
-    np.testing.assert_allclose(np.asarray(p_tpu["W"]), p_ref["W"],
+    np.testing.assert_allclose(np.asarray(p_jax["W"]), p_ref["W"],
                                rtol=5e-3, atol=5e-3)
-    np.testing.assert_allclose(float(p_tpu["pi"]), p_ref["pi"], rtol=1e-3)
-    np.testing.assert_allclose(float(p_tpu["sigma"]), p_ref["sigma"],
+    np.testing.assert_allclose(float(p_jax["pi"]), p_ref["pi"], rtol=1e-3)
+    np.testing.assert_allclose(float(p_jax["sigma"]), p_ref["sigma"],
                                rtol=1e-3)
 
 
 def test_trajectory_within_seed_spread(problem):
-    """Full runs: TPU trajectories fall inside the reference's seed spread."""
+    """Full runs: jitted trajectories fall inside the reference's seed spread."""
     model, gt, data = problem
     y = data["y"]
     steps = 25
@@ -73,18 +73,18 @@ def test_trajectory_within_seed_spread(problem):
         ref_trajs.append(out["F_true_trajectory"])
         ref_final.append(out["F_true_trajectory"][-1])
 
-    tpu_final = []
+    jax_final = []
     for s in seeds:
         em = EM(model, _anneal(steps), {"y": y},
                 params=model.standard_init(data, seed=s), seed=s)
         em.run()
-        tpu_final.append(em.history[-1]["Q_mean"])
+        jax_final.append(em.history[-1]["Q_mean"])
 
     ref_mean = np.mean(ref_final)
     spread = max(np.std(ref_final), 0.5)
-    for f in tpu_final:
+    for f in jax_final:
         assert abs(f - ref_mean) < 5 * spread, (
-            f"TPU final F {f:.3f} outside reference {ref_mean:.3f}±{spread:.3f}")
+            f"jitted final F {f:.3f} outside reference {ref_mean:.3f}±{spread:.3f}")
     # and both recover the dictionary
     assert count_recovered_bars(np.asarray(em.params["W"]),
                                 np.asarray(gt["W"]), 0.8) == model.H

@@ -1,4 +1,4 @@
-"""Checkpoint -> restore -> continue equivalence (SURVEY.md §5.4, VERDICT r1 #5).
+"""Checkpoint -> restore -> continue equivalence (SURVEY.md §5.4).
 
 The reference's implicit property: restarting from the last logged params
 reproduces the rest of the run.  Here the explicit checkpoint carries
@@ -101,7 +101,7 @@ def test_resume_equivalence_scanned(tmp_path):
 
 
 def test_scanned_checkpoint_cadence_with_unequal_periods(tmp_path, monkeypatch):
-    """ADVICE r1: with checkpoint_every=6 and revival every=4, scan segments
+    """With checkpoint_every=6 and revival every=4, scan segments
     end at multiples of 4 — checkpoints must still fire at every boundary
     crossing (~6), not only at common multiples (12, 24, ...)."""
     saves = []
@@ -123,7 +123,7 @@ def test_scanned_checkpoint_cadence_with_unequal_periods(tmp_path, monkeypatch):
 
 
 def test_cli_truncate_logs(tmp_path):
-    """ADVICE r1: resume rewinds result.h5 / metrics.jsonl to the checkpoint
+    """Resume rewinds result.h5 / metrics.jsonl to the checkpoint
     step so appended rows are not duplicated."""
     import h5py
 
@@ -152,7 +152,7 @@ def test_cli_truncate_logs(tmp_path):
 def test_resume_equivalence_with_revival(tmp_path):
     """Revival fires BEFORE the checkpoint and its PCG64 state rides in the
     checkpoint, so a resumed run replays the identical trajectory even with
-    revival active (VERDICT r1 weak item #7)."""
+    revival active."""
     model, data = _fixture()
     steps, cut = 20, 10
     ckpt = str(tmp_path / "c.h5")
@@ -194,7 +194,7 @@ def test_resume_equivalence_with_revival(tmp_path):
 
 def test_run_scanned_collect_params_matches_python_loop(tmp_path):
     """collect_params=True restores the reference's per-iteration W history
-    under the scanned driver (VERDICT r1 weak item #7, first half)."""
+    under the scanned driver."""
     import h5py
 
     from prosper_tpu.io.datalog import DataLog, StoreToH5

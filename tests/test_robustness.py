@@ -33,7 +33,7 @@ def test_bsc_bars_multiseed(nothing):
 
 
 def test_em_pads_non_chunk_multiple_library_path():
-    """VERDICT r2 weak #6: EM(model, anneal, {"y": y}) with N not a
+    """EM(model, anneal, {"y": y}) with N not a
     multiple of the chunk must pad with valid=0 rows internally (like the
     CLI always has) and produce EXACTLY the padded-by-hand trajectory."""
     from prosper_tpu.data.patches import pad_for_mesh

@@ -59,7 +59,7 @@ def test_state_shard_count_not_dividing_S():
 def test_state_mesh_with_non_state_model():
     """Models without state-sharding support (mixtures — no enumerated
     state axis) run state-replicated on a ('data','state') mesh instead of
-    raising TypeError (review finding).  [The ET families all support
+    raising TypeError.  [The ET families all support
     state sharding as of round 2 — see the equivalence tests below.]"""
     from prosper_tpu.models.mixtures import MoG
     from prosper_tpu.engine.em import EM
@@ -80,7 +80,7 @@ def test_state_mesh_with_non_state_model():
 
 
 def test_state_sharding_big_S_with_padding():
-    """State sharding at a scale that needs it (VERDICT r1 weak item #5):
+    """State sharding at a scale that needs it:
     TSC H'=10 gamma=5 enumerates S = sum_k C(10,k)*2^k = 12,564 signed
     multi-states; over 8 state shards S pads to 12,568 (S_loc=1571).  The
     online-logsumexp combine and the padded-state slice logic must be exact
@@ -105,7 +105,7 @@ def test_state_sharding_big_S_with_padding():
 
 @pytest.mark.parametrize("mesh_shape", [(4, 2), (1, 8)])
 def test_sblock_composes_with_state_sharding(mesh_shape):
-    """Round 3 (VERDICT r2 #5): the big-S s_block tiling composes with
+    """The big-S s_block tiling composes with
     state sharding — each device scans its S/n slice in s_block tiles and
     the (max, mass, moments) are combined across the axis with the same
     online-logsumexp rescale.  Must match the replicated un-tiled step.
@@ -130,34 +130,8 @@ def test_sblock_composes_with_state_sharding(mesh_shape):
 
 
 @pytest.mark.parametrize("mesh_shape", [(4, 2), (1, 8)])
-def test_bigs_pallas_composes_with_state_sharding(mesh_shape):
-    """Round 3: the FUSED big-S kernel (ops/bigs_pallas.py) also composes
-    with state sharding — each shard runs the kernel (interpret mode here)
-    over its local padded slice; partial (max, mass, moments) combine
-    across the axis.  Must match the replicated un-tiled XLA step."""
-    model = BSC(16, 8, 6, 4, chunk=128)         # S = 50 multi states
-    model_blk = BSC(16, 8, 6, 4, chunk=128, s_block=16, backend="pallas")
-    model_blk._pallas_interpret = True
-    model_blk._pallas_precise = True
-    gt = bars_gt_params(model, intensity=10.0, sigma=1.0)
-    data = model.generate_data(gt, 128, seed=13)
-
-    em1 = EM(model, LinearAnnealing(3), {"y": data["y"]}, seed=1)
-    p1 = em1.run()
-    rt = MeshRuntime(mesh_shape=mesh_shape, axis_names=("data", "state"))
-    em2 = EM(model_blk, LinearAnnealing(3), {"y": data["y"]}, seed=1,
-             runtime=rt)
-    p2 = em2.run()
-    np.testing.assert_allclose(np.asarray(p1["W"]), np.asarray(p2["W"]),
-                               rtol=2e-3, atol=2e-3)
-    F1 = [h["Q_mean"] for h in em1.history]
-    F2 = [h["Q_mean"] for h in em2.history]
-    np.testing.assert_allclose(F1, F2, rtol=2e-3, atol=2e-3)
-
-
-@pytest.mark.parametrize("mesh_shape", [(4, 2), (1, 8)])
 def test_dsc_phi_state_sharding_equivalence(mesh_shape):
-    """Round 4 (VERDICT r3 #6): DSC with a LEARNED value set Phi under a
+    """DSC with a LEARNED value set Phi under a
     ('data','state') mesh.  Phi learning makes the state arrays traced
     functions of params['phi'] (traced_state_arrays), and those traced
     (S, Hp)/(S, Hp^2) tensors flow through the per-shard dynamic state
@@ -188,7 +162,7 @@ def test_dsc_phi_state_sharding_equivalence(mesh_shape):
 
 
 def test_mixtures_data_sharding_equivalence():
-    """Round 4 (VERDICT r3 #6): MoG and MoP under a pure data mesh —
+    """MoG and MoP under a pure data mesh —
     the mixtures have no enumerated state axis, so DP is their whole
     sharding story; the sharded trajectory must match single-device."""
     from prosper_tpu.models.mixtures import MoG, MoP

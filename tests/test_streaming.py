@@ -1,4 +1,4 @@
-"""Host->device streaming EM (engine/stream.py, round 4 / VERDICT r3 #7).
+"""Host->device streaming EM (engine/stream.py).
 
 The streamed driver must reproduce the in-memory EM trajectory: same
 noisify RNG chain, same lagged-Ncut semantics (the global keep-threshold is
@@ -304,7 +304,7 @@ def test_streaming_partial_ncut_deviation_bounded():
 @pytest.mark.parametrize("mesh_shape,axes", [((8,), ("data",)),
                                              ((4, 2), ("data", "state"))])
 def test_streaming_over_mesh_matches_single_device(mesh_shape, axes):
-    """Round 4: StreamingEM(runtime=...) shards each segment over the mesh
+    """StreamingEM(runtime=...) shards each segment over the mesh
     data axis (shard_map'd E-step, psum'd suff stats) — and over the state
     axis on a ('data','state') mesh — matching the single-device streamed
     trajectory (f32 reduction order aside)."""

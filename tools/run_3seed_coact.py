@@ -1,12 +1,18 @@
 """3-seed patches-scale run with support-size coact blend splitting.
 
-Measures VERDICT weak #6 / next-round #6: does co-activation-guided
-splitting with the corrected (support-size) detector beat the 292/300
-plateau?  Protocol identical to the round-1 best (120 iters + gamma=5
-refinement, revival 0.85 + worst-F reseeding) plus split_coact.
+Does co-activation-guided splitting with the support-size detector move
+recovery past the plateau of the revival-only protocol?  Protocol: 120
+iters + gamma=5 refinement, revival 0.85 + worst-F reseeding, plus
+split_coact.
+
+Run from the repository root:  python tools/run_3seed_coact.py
 """
-import json, sys, time
-sys.path.insert(0, "/root/repo")
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from examples.patches_scale_run import main
 
 results = {}

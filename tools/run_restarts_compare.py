@@ -1,14 +1,16 @@
-"""Round 5 (VERDICT r4 #9): measure run_restarts against the sweep protocol.
+"""Measure run_restarts against the full recovery protocol.
 
-Question on record: at roughly equal chip time, is best-of-k independent
-restarts better than ONE run of the full recovery protocol (revival +
-worst-F reseed + coact splitting + gamma-5 refinement + blend-split
-sweep)?  One seed, one table row for BASELINE.md.
+Question: at roughly equal device time, is best-of-k independent restarts
+better than ONE run of the full recovery protocol (revival + worst-F
+reseed + coact splitting + gamma-5 refinement + blend-split sweep)?  One
+seed per call.
 
-Chip-time accounting (patches config, post-scan-fix): the full protocol
+Run from the repository root:  python tools/run_restarts_compare.py [seed]
+
+Device-time accounting (patches config): the full protocol
 is ~190 iterations of EM work (120 base + 40 refine + ~2x15 polish) plus
 host sweeps; best-of-2 restarts at 120 iters with revival-only escapes
-gives 240 iterations — slightly MORE chip time than the protocol, so a
+gives 240 iterations — slightly MORE device time than the protocol, so a
 protocol win is conservative.
 """
 import json
@@ -24,7 +26,7 @@ import numpy as np
 def main(seed=2):
     from examples.patches_scale_run import main as protocol
     from prosper_tpu.engine.em import run_restarts
-    from examples.patches_scale_run import planted_dictionary
+    from prosper_tpu.data.patches import planted_dictionary
     from prosper_tpu.data.bars import cosine_match
     from prosper_tpu.data.patches import pad_for_mesh
     from prosper_tpu.engine.anneal import LinearAnnealing

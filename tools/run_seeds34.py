@@ -1,7 +1,14 @@
-"""Seeds 3-4 of the patches-scale benchmark, default protocol (rounds out
-the 3-seed coact-split evidence to 5 seeds)."""
-import json, sys, time
-sys.path.insert(0, "/root/repo")
+"""Seeds 3-4 of the patches-scale recovery run, default protocol (rounds
+out the 3-seed coact-split sweep to 5 seeds).
+
+Run from the repository root:  python tools/run_seeds34.py
+"""
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from examples.patches_scale_run import main
 
 results = {}

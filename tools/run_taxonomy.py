@@ -1,10 +1,9 @@
-"""Round 5 (VERDICT r4 #5): taxonomy of the FINAL recovery misses.
+"""Taxonomy of the FINAL recovery misses of the patches-scale protocol.
 
-Round 4 measured median 299/300 over ten seeds (min 298, four perfect),
-and diagnosed the PRE-sweep misses (all blends) — but nothing recorded
-what the last 1-2 unrecovered atoms per non-perfect seed are after the
-full protocol.  This script re-runs the non-perfect seeds (0,1,2,5,6,9
-from BASELINE.md's round-4 table) with ``save_params`` set, then runs
+The pre-sweep misses are blends; this script classifies what the last
+unrecovered atoms are after the full protocol.  It re-runs the seeds
+that did not reach 300/300 (0,1,2,5,6,9) with ``save_params`` set, then
+runs
 ``data/diagnosis.py::diagnose_recovery`` on each FINAL dictionary and
 classifies every residual miss:
 
@@ -16,21 +15,23 @@ classifies every residual miss:
   * missing           — atom nowhere present with donors to spare
     (identifiability-limited: nothing in the dictionary points at it).
 
-Output: per-seed JSON lines + a final summary table for BASELINE.md.
+Output: per-seed JSON lines + a final summary line.
+
+Run from the repository root:  python tools/run_taxonomy.py
 """
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SEEDS = [0, 1, 2, 5, 6, 9]
 
 
-def classify_seed(seed: int, out_dir: str = "/tmp/taxonomy_r5"):
-    import os
+def classify_seed(seed: int, out_dir: str = "taxonomy_out"):
     os.makedirs(out_dir, exist_ok=True)
     from examples.patches_scale_run import main
     from prosper_tpu.data.diagnosis import diagnose_recovery, format_report
